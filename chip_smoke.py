@@ -3,11 +3,14 @@
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
-    python3 chip_smoke.py            # headline size, N = 40000
-    python3 chip_smoke.py --n 8000   # a smaller main path
+    python3 chip_smoke.py            # headline N = 40000, Helmholtz N = 100000
+    python3 chip_smoke.py --n 8000 --n-helm 20000   # a smaller rehearsal
 
 Phases, in this order, one line each (`phase <name> {json}`):
-  device:       card name and power limit, kernel build seconds;
+  device:       card name and power limit, kernel build seconds, ptxas
+                reports, and the reconstruction error of a complex64 SVD on
+                the card (torch.linalg.svd, and the port's double-precision
+                svd);
   main_path:    the headline pipeline — a random cloud in the unit ball,
                 kernel 1/(0.1+r), eps 1e-3, eta 10, leaf 128, f32, storage
                 'N' — through ClusterTreeBuilder -> HMatrixTreeBuilder.build
@@ -23,7 +26,28 @@ Phases, in this order, one line each (`phase <name> {json}`):
                 trans N/T x storage N (the headline buckets), S-L, S-U
                 (smaller assemblies) x k in {1, 4, 8}, each within 1e-5
                 relative (the kernel sums with f32 atomics, in a varying
-                order), both timed with CUDA events.
+                order), both timed with CUDA events;
+  k1_complex_x: K1 on the real view of a complex64 x (H real: H (a + ib)
+                = H a + i H b) against the plain version on the headline
+                operator, k in {1, 4}, within 1e-5;
+  helmholtz:    the complex path — N points on the unit sphere (seed 1),
+                kernel exp(10i(x0 - y0)) / (0.1 + r), eps 1e-6, eta 10,
+                leaf 128, complex64, storage 'N' — through the same entry
+                points, then `recompression(hm)`, then hm * x and hm @ X
+                (k = 8) on complex x, with K2's launches counted around
+                the products; seconds of cluster, assembly (split) and
+                recompression, stored bytes and compression before and
+                after recompression, product ms for k = 1 and 8 from a
+                device-resident chain, effective GB/s and the bound, and
+                the sampled error on 200 rows against the dense oracle
+                (<= 2e-6: eps, plus complex64 round-off of the same order);
+  k2_check:     kernel K2 against its plain version for trans N/T/C x
+                storage N (the Helmholtz buckets), H-L, H-U (hermitian
+                kernel) and S-L (the complex-symmetric exp(10i r) / (0.1 +
+                r)) on smaller sphere assemblies x k in {1, 4, 8}, each
+                within 1e-5 relative, both timed with CUDA events; and the
+                seconds of both recompression paths (the SVD-form trim and
+                the streaming QR + SVD) on the H-L operator.
 Then a `kernels` JSON line, the nvidia-smi line, and last the JSON ok
 line.  Any failure raises and exits non-zero; without a CUDA device the
 script exits non-zero before printing any result.  Imports nothing of JAX.
@@ -43,7 +67,10 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 K1_TOL = 1e-5  # f32 atomic summation order vs the plain version
+K2_TOL = 1e-5  # the same, for complex64
 SAMPLED_ERR_MAX = 1e-3  # the headline epsilon
+HELM_EPS = 1e-6
+HELM_ERR_MAX = 2 * HELM_EPS  # complex64 round-off is of the order of eps
 
 
 def check(cond, msg):
@@ -86,20 +113,44 @@ def copy_rate_gbs(torch, device, nbytes=1 << 30):
     return 2 * nbytes / (ms * 1e-3) / 1e9
 
 
-def k1_bound(data, L, k):
-    """(bound ms, bound_by): the bytes the product must move (every stored
-    entry and offset once, x read once, y written once) over the HBM rate,
-    against its flops (2 per stored entry and column; mirrored blocks
-    apply their entries twice) over the f32 rate."""
+def svd_check(torch, device):
+    """Relative reconstruction error max |U S Vh - A| / max |A| of
+    torch.linalg.svd in complex64 on the card, against the port's svd
+    (ops/aca.py: the same call in complex128, cast back), on a batch of
+    random 96 x 96 matrices (the size of a block's rank core)."""
+    from htool_python_torch.ops.aca import svd
+
+    g = torch.Generator(device).manual_seed(0)
+    A = torch.randn((256, 96, 96), dtype=torch.complex64, device=device,
+                    generator=g)
+    out = {}
+    for name, fn in (("torch_linalg_svd_c64",
+                      lambda a: torch.linalg.svd(a, full_matrices=False)),
+                     ("port_svd_c64", svd)):
+        U, s, Vh = fn(A)
+        err = (U * s[:, None, :].to(U.dtype)) @ Vh - A
+        out[name] = float(err.abs().max() / A.abs().max())
+    return out
+
+
+def product_bound(data, L, k):
+    """(bound ms, bound_by) of one product with k columns: the bytes it
+    must move (every stored entry once at its element size, 9 bytes of
+    offsets and mirror flag per block, x read once and y written once in
+    the data's dtype) over the HBM rate, against its flops (per stored
+    entry, column and use — a mirrored block is used twice — 2 for real
+    data, 8 for complex: 4 multiplies and 4 adds) over the f32 rate."""
     nbytes = 0
     flops = 0
+    itemsize = 4
     for entry in data["dense"] + data["lr"]:
         mats, mirror = entry[:-3], entry[-1]
+        itemsize = mats[0].element_size()
         per_block = sum(m[0].numel() for m in mats)
         uses = mirror.numel() + int(mirror.sum())
-        nbytes += sum(m.numel() * 4 for m in mats) + 9 * mirror.numel()
-        flops += 2 * k * per_block * uses
-    nbytes += 2 * L * k * 4
+        nbytes += sum(m.numel() * itemsize for m in mats) + 9 * mirror.numel()
+        flops += (8 if mats[0].is_complex() else 2) * k * per_block * uses
+    nbytes += 2 * int(L) * k * itemsize
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -187,8 +238,9 @@ def chain_ms(torch, hm, k, seed, prepared=True):
     data = hm._product_data()
     table = hm._bucket_table() if prepared else None
     g = torch.Generator(hm.device).manual_seed(seed)
-    x0 = torch.zeros((L, k), device=hm.device)
-    x0[:n] = torch.rand((n, k), device=hm.device, generator=g)
+    x0 = torch.zeros((L, k), dtype=hm.dtype, device=hm.device)
+    x0[:n] = torch.rand((n, k), dtype=hm.dtype, device=hm.device,
+                        generator=g)
 
     def run(reps):
         x = x0
@@ -262,12 +314,220 @@ def k1_cases(torch, operators):
     return results
 
 
+def k1_complex_x_cases(torch, hm):
+    """K1 on the real view of a complex64 x against the plain version (the
+    launches here are checks, not the main path)."""
+    from htool_python_torch.ops.cuda_matvec import apply_hmatrix_cuda
+    from htool_python_torch.ops.matvec import apply_hmatrix_padded
+
+    L, n = hm._pad_len, hm.shape[0]
+    data, table = hm._product_data(), hm._bucket_table()
+    g = torch.Generator(hm.device).manual_seed(11)
+    results = []
+    for trans in ("N", "C"):
+        for k in (1, 4):
+            x = torch.zeros((L, k), dtype=torch.complex64, device=hm.device)
+            x[:n] = torch.rand((n, k), dtype=torch.complex64,
+                               device=hm.device, generator=g)
+            y = apply_hmatrix_cuda(data, x, L, trans, "N", table)
+            y_plain = apply_hmatrix_padded(data, x, L, trans, "N")
+            torch.cuda.synchronize()
+            abs_err = float((y - y_plain).abs().max())
+            rel = abs_err / float(y_plain.abs().max())
+            case = dict(N=n, trans=trans, k=k, max_rel_err=rel,
+                        max_abs_err=abs_err,
+                        ms=cuda_ms(torch, lambda: apply_hmatrix_cuda(
+                            data, x, L, trans, "N", table), reps=30),
+                        plain_ms=cuda_ms(torch, lambda: apply_hmatrix_padded(
+                            data, x, L, trans, "N"), reps=5, warmup=1))
+            emit("k1_complex_x", **case)
+            check(y.dtype == torch.complex64 and np.isfinite(rel)
+                  and rel <= K1_TOL,
+                  f"K1 on a complex x disagrees with the plain version: "
+                  f"{case}")
+            results.append(case)
+    return results
+
+
+def helmholtz_sampled_error(points, x, y, rng, n_rows=200):
+    """Relative error on n_rows sampled rows against the dense oracle
+    exp(10i (x0 - y0)) / (0.1 + r)."""
+    rows = rng.choice(points.shape[1], n_rows, replace=False)
+    tx = points[:, rows]
+    d = np.linalg.norm(tx[:, :, None] - points[:, None, :], axis=0)
+    K = np.exp(1j * 10.0 * (tx[0][:, None] - points[0][None, :])) / (0.1 + d)
+    y_exact = K @ x.astype(np.complex128)
+    return float(np.linalg.norm(y[rows] - y_exact) / np.linalg.norm(y_exact))
+
+
+def symmetric_phase_kernel(torch):
+    """exp(10i r) / (0.1 + r): complex-symmetric (K(x, y) = K(y, x)), not
+    hermitian; the 'S' storage case of the complex checks."""
+    def k(x, y):
+        r = torch.sqrt(torch.sum((x - y) ** 2, dim=-1))
+        return torch.exp(10j * r) / (0.1 + r)
+    return k
+
+
+def build_complex(T, torch, points, kernel, symmetry, UPLO, device):
+    builder = T.ClusterTreeBuilder()
+    builder.set_maximal_leaf_size(128)
+    t0 = time.perf_counter()
+    cluster = builder.create_cluster_tree(points, 2)
+    t_cluster = time.perf_counter() - t0
+    gen = T.KernelGenerator(kernel, points, points, is_complex=True,
+                            device=device)
+    hb = T.HMatrixTreeBuilder(HELM_EPS, 10.0, symmetry, UPLO, device=device)
+    hb.set_dtype(torch.complex64)
+    t0 = time.perf_counter()
+    hm = hb.build(gen, cluster, cluster)
+    torch.cuda.synchronize()
+    return hm, t_cluster, time.perf_counter() - t0
+
+
+def helmholtz(T, torch, n, seed, device, counts, copy_gbs):
+    """The complex path, with the kernels' launches counted around it;
+    returns (operator, product timing)."""
+    from htool_python_torch.hmatrix.assembly import ASSEMBLY_PROFILE
+    from htool_python_torch.models.geometry import \
+        create_random_points_on_sphere
+    from htool_python_torch.models.kernels import hermitian_phase_kernel
+    from htool_python_torch.ops import cuda_matvec
+    from htool_python_torch.ops.matvec import stored_bytes
+
+    points = create_random_points_on_sphere(n, np.random.RandomState(1))
+    torch.cuda.reset_peak_memory_stats()
+    cuda_matvec.reset_launch_counts()
+    hm, t_cluster, t_asm = build_complex(
+        T, torch, points, hermitian_phase_kernel(10.0), "N", "N", device)
+    profile = dict(ASSEMBLY_PROFILE)
+    before = dict(stored_bytes=stored_bytes(hm._product_data()),
+                  compression_ratio=n * n / max(sum(hm._storage_counts()[:2]),
+                                                1))
+    t0 = time.perf_counter()
+    T.recompression(hm)
+    torch.cuda.synchronize()
+    t_recomp = time.perf_counter() - t0
+    dense_e, lr_e, ranks = hm._storage_counts()
+    data = hm._product_data()
+    nbytes = stored_bytes(data)
+
+    rng = np.random.RandomState(seed)
+    x1 = (rng.rand(n) + 1j * rng.rand(n)).astype(np.complex64)
+    X8 = np.asfortranarray((rng.rand(n, 8) + 1j * rng.rand(n, 8))
+                           .astype(np.complex64))
+    y1 = hm * x1
+    Y8 = hm @ X8
+    torch.cuda.synchronize()
+    counts.update(cuda_matvec.LAUNCH_COUNTS)
+
+    check(y1.shape == (n,) and Y8.shape == (n, 8)
+          and y1.dtype == np.complex64, "Helmholtz product shapes")
+    check(np.isfinite(y1).all() and np.isfinite(Y8).all(),
+          "non-finite Helmholtz product")
+    err = helmholtz_sampled_error(points, x1, y1, rng)
+    err8 = max(helmholtz_sampled_error(points, X8[:, c], Y8[:, c],
+                                       np.random.RandomState(c))
+               for c in range(8))
+    timing = {}
+    for k in (1, 8):
+        ms = chain_ms(torch, hm, k, seed)
+        bound, bound_by = product_bound(data, hm._pad_len, k)
+        timing[k] = dict(product_ms=ms, effective_GBs=nbytes / ms / 1e6,
+                         fraction_of_copy_rate=nbytes / ms / 1e6 / copy_gbs,
+                         bound_ms=bound, bound_by=bound_by)
+    emit("helmholtz", N=n, epsilon=HELM_EPS, eta=10.0, leaf=128,
+         dtype="complex64", storage="N", kernel="exp(10i(x0-y0))/(0.1+r)",
+         cluster_s=t_cluster, assembly_s=t_asm, assembly_profile=profile,
+         recompression_s=t_recomp, before_recompression=before,
+         stored_bytes=int(nbytes),
+         compression_ratio=n * n / max(dense_e + lr_e, 1),
+         dense_buckets=len(data["dense"]), lowrank_buckets=len(data["lr"]),
+         blocks=hm.plan.nb_dense_blocks() + hm.plan.nb_lowrank_blocks(),
+         max_rank=int(ranks.max()) if len(ranks) else 0,
+         sampled_rel_error_k1=err, sampled_rel_error_k8_max=err8,
+         copy_GBs=copy_gbs,
+         product={f"k{k}": v for k, v in timing.items()},
+         peak_memory_GB=torch.cuda.max_memory_allocated() / 1e9,
+         launches=dict(counts))
+    check(nbytes <= before["stored_bytes"],
+          f"recompression grew the operator: {before['stored_bytes']} -> "
+          f"{nbytes} bytes")
+    check(err <= HELM_ERR_MAX and err8 <= HELM_ERR_MAX,
+          f"Helmholtz sampled error {err}, {err8} above {HELM_ERR_MAX}")
+    return hm, timing
+
+
+def k2_cases(torch, operators):
+    """K2 against its plain version for every case."""
+    from htool_python_torch.ops.cuda_matvec import apply_hmatrix_cuda
+    from htool_python_torch.ops.matvec import apply_hmatrix_padded
+
+    results = []
+    for (symmetry, UPLO), hm in operators.items():
+        L, n = hm._pad_len, hm.shape[0]
+        data, table = hm._product_data(), hm._bucket_table()
+        g = torch.Generator(hm.device).manual_seed(7)
+        for trans in ("N", "T", "C"):
+            for k in (1, 4, 8):
+                x = torch.zeros((L, k), dtype=torch.complex64,
+                                device=hm.device)
+                x[:n] = torch.rand((n, k), dtype=torch.complex64,
+                                   device=hm.device, generator=g)
+                y = apply_hmatrix_cuda(data, x, L, trans, symmetry, table)
+                y_plain = apply_hmatrix_padded(data, x, L, trans, symmetry)
+                torch.cuda.synchronize()
+                abs_err = float((y - y_plain).abs().max())
+                rel = abs_err / float(y_plain.abs().max())
+                ms = cuda_ms(torch, lambda: apply_hmatrix_cuda(
+                    data, x, L, trans, symmetry, table), reps=20)
+                plain_ms = cuda_ms(torch, lambda: apply_hmatrix_padded(
+                    data, x, L, trans, symmetry), reps=3, warmup=1)
+                case = dict(storage=symmetry + ("-" + UPLO if UPLO != "N"
+                                                else ""),
+                            N=n, trans=trans, k=k, max_rel_err=rel,
+                            max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+                emit("k2_check", **case)
+                check(np.isfinite(rel) and rel <= K2_TOL,
+                      f"K2 disagrees with its plain version: {case}")
+                results.append(case)
+    return results
+
+
+def recompression_times(T, torch, hm):
+    """Seconds of both recompression paths on deep copies of `hm` (the
+    original is untouched), with the ranks and bytes they leave."""
+    import copy
+
+    from htool_python_torch.ops.matvec import stored_bytes
+
+    out = {}
+    for path, svd_form in (("svd_form", True), ("streaming", False)):
+        h = copy.deepcopy(hm)
+        h._lr_svd_form = svd_form
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        T.recompression(h)
+        torch.cuda.synchronize()
+        out[path] = dict(seconds=time.perf_counter() - t0,
+                         rank_sum=int(sum(int(r.sum()) for r in h._lr_ranks)),
+                         stored_bytes=stored_bytes(h._product_data()))
+    out["before"] = dict(rank_sum=int(sum(int(r.sum())
+                                          for r in hm._lr_ranks)),
+                         stored_bytes=stored_bytes(hm._product_data()))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=40000,
                     help="points of the main path (default: 40000)")
     ap.add_argument("--n-sym", type=int, default=8000,
                     help="points of the symmetric K1 check assemblies")
+    ap.add_argument("--n-helm", type=int, default=100000,
+                    help="points of the Helmholtz path (default: 100000)")
+    ap.add_argument("--n-k2", type=int, default=8000,
+                    help="points of the H and S K2 check assemblies")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -278,10 +538,11 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import htool_python_torch as T
-    from htool_python_torch.models.geometry import \
-        create_random_points_in_sphere
+    from htool_python_torch.models.geometry import (
+        create_random_points_in_sphere, create_random_points_on_sphere)
+    from htool_python_torch.models.kernels import hermitian_phase_kernel
     from htool_python_torch.ops import cuda_build
-    from htool_python_torch.ops.cuda_matvec import KERNEL_NAME
+    from htool_python_torch.ops.cuda_matvec import K2_NAME, KERNEL_NAME
     from htool_python_torch.ops.matvec import stored_bytes
 
     device = torch.device("cuda")
@@ -292,8 +553,10 @@ def main(argv=None) -> int:
     emit("device", nvidia_smi=smi, device=name, count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda,
          build_s=time.perf_counter() - t0, nvcc_s=built,
-         ptxas=[ln.strip() for ln in cuda_build.ptxas_report(KERNEL_NAME)
-                .splitlines() if "registers" in ln or "spill" in ln])
+         ptxas={name: [ln.strip() for ln in cuda_build.ptxas_report(name)
+                       .splitlines() if "registers" in ln or "spill" in ln]
+                for name in (KERNEL_NAME, K2_NAME)},
+         svd_check=svd_check(torch, device))
 
     counts = {}
     hm = main_path(T, torch, args.n, args.seed, device, counts)
@@ -306,7 +569,7 @@ def main(argv=None) -> int:
     timing = {}
     for k in (1, 8):
         ms = chain_ms(torch, hm, k, args.seed)
-        bound, bound_by = k1_bound(data, hm._pad_len, k)
+        bound, bound_by = product_bound(data, hm._pad_len, k)
         timing[k] = dict(product_ms=ms, effective_GBs=nbytes / ms / 1e6,
                          bound_ms=bound, bound_by=bound_by,
                          product_ms_table_per_call=chain_ms(
@@ -323,22 +586,49 @@ def main(argv=None) -> int:
     for sym in (("S", "L"), ("S", "U")):
         operators[sym] = build_operator(T, torch, pts_sym, *sym, device)[0]
     cases = k1_cases(torch, operators)
+    del operators
+    cx_cases = k1_complex_x_cases(torch, hm)
+    del hm, data
+    torch.cuda.empty_cache()
 
-    head = next(c for c in cases if c["storage"] == "N" and c["trans"] == "N"
-                and c["k"] == 1)
-    head8 = next(c for c in cases if c["storage"] == "N"
-                 and c["trans"] == "N" and c["k"] == 8)
-    print(json.dumps({"kernels": [{
-        "name": KERNEL_NAME, "route": "cuda",
-        "source": "htool_python_torch/csrc/hmatrix_product.cu",
-        "replaces": "htool_python_tpu/ops/pallas_matvec.py:538",
-        "launches": counts[KERNEL_NAME],
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": timing[1]["bound_ms"], "bound_by": timing[1]["bound_by"],
-        "library_ms": None,
-        "ms_k8": head8["ms"], "plain_ms_k8": head8["plain_ms"],
-        "bound_ms_k8": timing[8]["bound_ms"]}]}), flush=True)
+    helm_counts = {}
+    helm, helm_timing = helmholtz(T, torch, args.n_helm, args.seed, device,
+                                  helm_counts, copy_gbs)
+    check(helm_counts.get(K2_NAME, 0) > 0,
+          "the Helmholtz path never launched kernel K2")
+    pts_k2 = create_random_points_on_sphere(
+        args.n_k2, np.random.RandomState(args.seed + 2))
+    c_ops = {("N", "N"): helm}
+    for sym, kern in ((("H", "L"), hermitian_phase_kernel(10.0)),
+                      (("H", "U"), hermitian_phase_kernel(10.0)),
+                      (("S", "L"), symmetric_phase_kernel(torch))):
+        c_ops[sym] = build_complex(T, torch, pts_k2, kern, *sym, device)[0]
+    k2 = k2_cases(torch, c_ops)
+    emit("recompression_paths", operator=f"H-L, N={args.n_k2}",
+         card=smi, **recompression_times(T, torch, c_ops[("H", "L")]))
+
+    def entry(name, source, replaces, launches, case_list, timing_):
+        head = next(c for c in case_list if c["storage"] == "N"
+                    and c["trans"] == "N" and c["k"] == 1)
+        head8 = next(c for c in case_list if c["storage"] == "N"
+                     and c["trans"] == "N" and c["k"] == 8)
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max(c["max_abs_err"] for c in case_list),
+                "ms": head["ms"], "plain_ms": head["plain_ms"],
+                "bound_ms": timing_[1]["bound_ms"],
+                "bound_by": timing_[1]["bound_by"], "library_ms": None,
+                "ms_k8": head8["ms"], "plain_ms_k8": head8["plain_ms"],
+                "bound_ms_k8": timing_[8]["bound_ms"]}
+
+    print(json.dumps({"kernels": [
+        dict(entry(KERNEL_NAME, "htool_python_torch/csrc/hmatrix_product.cu",
+                   "htool_python_tpu/ops/pallas_matvec.py:538",
+                   counts[KERNEL_NAME], cases, timing),
+             max_abs_err_complex_x=max(c["max_abs_err"] for c in cx_cases)),
+        entry(K2_NAME, "htool_python_torch/csrc/hmatrix_product_complex.cu",
+              "htool_python_tpu/ops/pallas_matvec.py:571",
+              helm_counts[K2_NAME], k2, helm_timing)]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

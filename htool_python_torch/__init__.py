@@ -3,10 +3,11 @@
 The port of htool_python_tpu (the JAX/Pallas reference, which stays in the
 repository unchanged) to PyTorch on an NVIDIA H100.  Cluster trees and
 block plans are computed on host (numpy); assembly (batched ACA, QR/SVD
-truncation, dense fills) runs as batched torch ops on the device; the
-compressed product runs the hand-written CUDA kernel K1
-(ops/cuda_matvec.py, csrc/hmatrix_product.cu) on CUDA tensors and its plain
-PyTorch version on CPU tensors.  Entry points run on CUDA unless the caller
+truncation, dense fills, recompression) runs as batched torch ops on the
+device; the compressed product runs the hand-written CUDA kernels K1 (real
+f32, csrc/hmatrix_product.cu) and K2 (complex64,
+csrc/hmatrix_product_complex.cu) through ops/cuda_matvec.py on CUDA
+tensors, and their plain PyTorch version on CPU tensors.  Entry points run on CUDA unless the caller
 passes device='cpu'.  Nothing here imports JAX or the reference package.
 
 The names mirror the reference's public surface for the parts ported so
@@ -35,6 +36,7 @@ from .hmatrix.generator import (
 )
 from .hmatrix.hmatrix import HMatrix, HMatrixTreeBuilder
 from .hmatrix.lowrank import LowRankMatrix
+from .hmatrix.recompression import openmp_recompression, recompression
 
 # Misc
 from .utils.logger import logger, test_logger

@@ -26,7 +26,7 @@ import torch
 
 from ..config import get_config, require_full_f32
 from ..ops.aca import (_chunk_cap, _chunk_slices, _ladder_size, aca_chunk,
-                       truncate_chunk)
+                       svd, truncate_chunk)
 from ..ops.matvec import RankMajorFactors
 from .generator import VirtualGenerator
 from .plan import BlockPlan, _bucketize
@@ -72,7 +72,7 @@ def _masked_blocks(gen, dtype, rows_idx, cols_idx, t_sz, s_sz):
 def _dense_svd_lr(gen, dtype, rows_idx, cols_idx, t_sz, s_sz):
     """Small-block low-rank path: dense fill + batched SVD factors."""
     D = _masked_blocks(gen, dtype, rows_idx, cols_idx, t_sz, s_sz)
-    U, S, Vh = torch.linalg.svd(D, full_matrices=False)
+    U, S, Vh = svd(D)
     return (U * S[:, None, :]).to(dtype), Vh.to(dtype)
 
 

@@ -9,6 +9,8 @@ y_user[perm] = y_internal).
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -41,7 +43,12 @@ class HMatrix:
         self.UPLO = plan.UPLO
         self.dtype = as_torch_dtype(dtype)
         self._dev_perms = None  # lazy device permutation cache
-        self._table = None  # K1's bucket table, built at the first product
+        self._table = None  # the kernels' bucket table, built at 1st product
+        # every low-rank leaf an exact SVD pair (U = Q W diag(s) with
+        # orthonormal Q W, V with orthonormal rows): recompression may then
+        # trim by the row norms of Ut (hmatrix/recompression.py).  The
+        # builder's assembly paths all end in an SVD truncation and set it.
+        self._lr_svd_form = False
 
         nt, ns = plan.nb_rows, plan.nb_cols
         maxdim = max([b.pt for b in plan.dense_buckets + plan.lowrank_buckets]
@@ -52,12 +59,14 @@ class HMatrix:
         self._pad_len = -(-(max(nt, ns) + maxdim + 384) // 128) * 128
 
     @classmethod
-    def from_arrays(cls, plan, dense, lr, ranks, eps, dtype, device):
+    def from_arrays(cls, plan, dense, lr, ranks, eps, dtype, device,
+                    lr_svd_form: bool = False):
         """An HMatrix from already-assembled arrays (numpy or tensors):
         dense[i] (nb, pt, ps) per plan.dense_buckets[i]; lr[i] a pair
         (Ut (nb, r, pt), V (nb, r, ps)) in rank-major storage layout per
-        plan.lowrank_buckets[i]; ranks[i] (nb,).  Lets another assembly —
-        the reference's, in the tests — define the operator."""
+        plan.lowrank_buckets[i]; ranks[i] (nb,).  `lr_svd_form`: every
+        low-rank pair is an SVD pair (see __init__).  Lets another
+        assembly — the reference's, in the tests — define the operator."""
         device = resolve_device(device)
         dtype = as_torch_dtype(dtype)
         def tensor(a):  # numpy arrays are copied (they may be read-only)
@@ -67,7 +76,9 @@ class HMatrix:
 
         dense = [tensor(D) for D in dense]
         lr = [RankMajorFactors(tensor(Ut), tensor(V)) for Ut, V in lr]
-        return cls(plan, dense, lr, ranks, eps, dtype, device)
+        h = cls(plan, dense, lr, ranks, eps, dtype, device)
+        h._lr_svd_form = bool(lr_svd_form)
+        return h
 
     # ------------------------------------------------------------------
     @property
@@ -100,6 +111,12 @@ class HMatrix:
     # products
     def _product_data(self):
         """The bucket data products consume (the canonical storage)."""
+        return self._data
+
+    def _assembly_data(self):
+        """The bucket data as assembled, which densification and
+        recompression read (the same storage: the port keeps no separate
+        product layout)."""
         return self._data
 
     def _bucket_table(self) -> BucketTable:
@@ -270,6 +287,26 @@ class HMatrix:
         return new
 
     # ------------------------------------------------------------------
+    # low-rank storage replacement (recompression)
+    def _set_lr_structure(self, lowrank_buckets, lr_arrays, lr_ranks):
+        """Replace the low-rank buckets AND factors (recompression with
+        rank re-classing: recompressed ranks fall below their assembly
+        class, so re-bucketing trims the padded bytes products stream).
+        lr_arrays[i]: RankMajorFactors or (U (nb, pt, r), V (nb, r, ps))."""
+        self.plan = dataclasses.replace(self.plan,
+                                        lowrank_buckets=list(lowrank_buckets))
+        self._set_lr_arrays(lr_arrays, lr_ranks)
+
+    def _set_lr_arrays(self, lr_arrays, lr_ranks):
+        """Replace the low-rank factors of the current buckets."""
+        dense_arrays = [d[0] for d in self._assembly_data()["dense"]]
+        self._data = pack_bucket_data(self.plan.dense_buckets, dense_arrays,
+                                      self.plan.lowrank_buckets, lr_arrays,
+                                      self.device)
+        self._lr_ranks = [np.asarray(r) for r in lr_ranks]
+        self._table = None  # it names the replaced tensors by pointer
+
+    # ------------------------------------------------------------------
     # info dicts (reference: get_tree_parameters / get_local_information)
     def get_tree_parameters(self) -> dict:
         return {
@@ -428,6 +465,10 @@ class HMatrixTreeBuilder:
                 getattr(generator, "is_complex", False))
         new_plan, dense_arrays, lr_arrays, lr_ranks = assemble(
             plan, generator, self.epsilon, self.reqrank, dtype, self.device)
-        return HMatrix(new_plan, dense_arrays, lr_arrays, lr_ranks,
-                       self.epsilon, dtype, self.device)
+        h = HMatrix(new_plan, dense_arrays, lr_arrays, lr_ranks,
+                    self.epsilon, dtype, self.device)
+        # every assembly path (device ACA or dense + QR/SVD truncation, host
+        # SVD) leaves SVD pairs: recompression may take its O(bytes) trim
+        h._lr_svd_form = True
+        return h
 

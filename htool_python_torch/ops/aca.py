@@ -71,6 +71,24 @@ def real_dtype(dtype: torch.dtype) -> torch.dtype:
             torch.complex128: torch.float64}.get(dtype, dtype)
 
 
+_WIDER = {torch.float32: torch.float64, torch.complex64: torch.complex128}
+
+
+def svd(a):
+    """torch.linalg.svd(a, full_matrices=False), computed in double
+    precision for single-precision input and returned in a's precision.
+    cuSOLVER's batched single-precision SVD reconstructs its input far
+    less accurately than the precision's round-off (chip_smoke.py phase
+    `device`, `svd_check`), which would put a floor above eps = 1e-6 under
+    every complex64 assembly; the matrices it gets here are small (a
+    block's r x r core, or a dense block of at most 64 x 64)."""
+    wide = _WIDER.get(a.dtype)
+    if wide is None:
+        return torch.linalg.svd(a, full_matrices=False)
+    U, s, Vh = torch.linalg.svd(a.to(wide), full_matrices=False)
+    return U.to(a.dtype), s.to(real_dtype(a.dtype)), Vh.to(a.dtype)
+
+
 def batched_aca(gen, t_idx, s_idx, t_sz, s_sz, rmax: int, eps: float,
                 reqrank: int, dtype):
     """Compress one bucket of admissible blocks.
@@ -232,7 +250,7 @@ def truncate_chunk(reqrank: int, U, V, ranks, eps: float):
     Qu, Ru = torch.linalg.qr(U)  # (nb, pt, r'), (nb, r', r)
     Qv, Rv = torch.linalg.qr(V.transpose(1, 2).conj())
     core = torch.einsum("nij,nkj->nik", Ru, Rv.conj())  # Ru @ Rv^H
-    W, s, Zh = torch.linalg.svd(core, full_matrices=False)
+    W, s, Zh = svd(core)
     # per-block truncation rank: smallest r' with tail energy <= eps^2 * total
     s2 = s * s
     total = torch.sum(s2, dim=1, keepdim=True)

@@ -23,7 +23,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build"
 
 # kernel library name -> source file under csrc/
-SOURCES = {"hmatrix_product": "hmatrix_product.cu"}
+SOURCES = {"hmatrix_product": "hmatrix_product.cu",  # K1
+           "hmatrix_product_complex": "hmatrix_product_complex.cu"}  # K2
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

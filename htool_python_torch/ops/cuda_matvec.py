@@ -1,26 +1,40 @@
-"""Kernel K1 on Hopper: the real f32 bucketed H-matrix product.
+"""Kernels K1 and K2 on Hopper: the bucketed H-matrix product.
 
-Counterpart of htool_python_tpu/ops/pallas_matvec.py `apply_hmatrix_pallas`
-(the TPU's fused Pallas product).  Source: htool_python_torch/csrc/
-hmatrix_product.cu, built by ops/cuda_build.py and called through ctypes.
+K1, the real f32 product, is the counterpart of
+htool_python_tpu/ops/pallas_matvec.py `apply_hmatrix_pallas`; source
+htool_python_torch/csrc/hmatrix_product.cu.  K2, the complex64 product, is
+the counterpart of `apply_hmatrix_pallas_complex` there; source
+htool_python_torch/csrc/hmatrix_product_complex.cu.  Both are built by
+ops/cuda_build.py and called through ctypes.
 
-Contract (the same as `apply_hmatrix_padded`, its plain version in
+Contract (the same as `apply_hmatrix_padded`, their plain version in
 ops/matvec.py): for bucket data {'dense': [(D, t_off, s_off, mirror)],
 'lr': [(Ut, V, t_off, s_off, mirror)]} and x_pad (L, k), return y_pad
 (ny_pad, k) = H^(trans) x_pad for trans in 'N', 'T', 'C' and storage sym in
-'N', 'S', 'H'; for real data 'C' is 'T' and 'H' is 'S'.  Any k.  One
-launch covers every bucket.  x_pad and y_pad must both hold every block
-segment (BucketTable.extent rows), or the call raises.
+'N', 'S', 'H'.  Any k.  One launch covers every bucket.  x_pad and y_pad
+must both hold every block segment (BucketTable.extent rows), or the call
+raises.  The data's dtype picks the kernel:
+
+  * float32 data, float32 x: K1.  For real data 'C' is 'T' and 'H' is 'S'.
+  * float32 data, complex64 x: K1 on the real view (`real_view_product`).
+    H is real, so H (a + ib) = H a + i H b: the (L, k) complex x is read
+    as (L, 2k) floats (torch.view_as_real, no copy), K1 runs over the 2k
+    real columns, and its (ny_pad, 2k) result is viewed back as complex.
+  * complex64 data: K2, with a float32 x promoted to complex64 first.
+    trans 'C' conjugates the operator, and a hermitian ('H') mirror term
+    is conjugated; the wrapper turns both into one conjugation flag per
+    direction of a block (`_conj_flags`, the plain version's conj_main /
+    conj_mirror).
+  * float64 or complex128 on CUDA: NotImplementedError (ROADMAP item 22;
+    the TPU had no f64 kernel either).
 
 Tolerance: many blocks add into the same rows of y with f32 atomicAdd, in
-an order that changes from run to run, so the kernel agrees with the plain
-version to f32 summation round-off (checked at 1e-5 relative), not bit
-for bit.
+an order that changes from run to run, so either kernel agrees with the
+plain version to f32 summation round-off (checked at 1e-5 relative), not
+bit for bit.
 
-Not taken yet: complex64 and float64 on CUDA raise NotImplementedError;
-the complex product is kernel K2 (ROADMAP slice 2, with f64 on the card).
 The operand's device decides: CPU tensors go to the plain version; on a
-CUDA tensor this always launches the kernel or raises, never falls back.
+CUDA tensor this always launches a kernel or raises, never falls back.
 """
 
 from __future__ import annotations
@@ -31,12 +45,19 @@ import torch
 
 from .matvec import apply_hmatrix_padded
 
-KERNEL_NAME = "hmatrix_product"
+KERNEL_NAME = "hmatrix_product"  # K1
+K2_NAME = "hmatrix_product_complex"
 
 # launches of each kernel, counted where the wrapper launches it
-LAUNCH_COUNTS = {KERNEL_NAME: 0}
+LAUNCH_COUNTS = {KERNEL_NAME: 0, K2_NAME: 0}
 
 _TABLE_FIELDS = 10  # int64 fields per bucket row (struct Bucket in the .cu)
+
+# the data dtype each kernel takes
+_KERNEL_OF = {torch.float32: KERNEL_NAME, torch.complex64: K2_NAME}
+
+_F64_ITEM = ("float64 and complex128 products on CUDA are not ported: "
+             "ROADMAP queue 1, item 22")
 
 
 def reset_launch_counts() -> None:
@@ -44,32 +65,51 @@ def reset_launch_counts() -> None:
         LAUNCH_COUNTS[name] = 0
 
 
-def _library():
+def _library(name):
     from .cuda_build import load
 
-    lib = load(KERNEL_NAME)
+    lib = load(name)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.hm_k1_launch.argtypes = [p, i, ll, p, ll, p, ll, i, i, i, i, i, p]
-    lib.hm_k1_launch.restype = i
-    lib.hm_error_string.argtypes = [i]
-    lib.hm_error_string.restype = ctypes.c_char_p
+    if name == KERNEL_NAME:
+        lib.hm_k1_launch.argtypes = [p, i, ll, p, ll, p, ll, i, i, i, i, i, p]
+        lib.hm_k1_launch.restype = i
+        lib.hm_error_string.argtypes = [i]
+        lib.hm_error_string.restype = ctypes.c_char_p
+    else:
+        lib.hm_k2_launch.argtypes = [p, i, ll, p, ll, p, ll, i, i, i, i, i,
+                                     i, i, p]
+        lib.hm_k2_launch.restype = i
+        lib.hm_k2_error_string.argtypes = [i]
+        lib.hm_k2_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check_operand(t, name, device, ndim):
+def _data_dtype(data):
+    """dtype of the data's first stored tensor (None without buckets)."""
+    for kind in ("dense", "lr"):
+        if data[kind]:
+            return data[kind][0][0].dtype
+    return None
+
+
+def _check_dtype(dtype, name):
+    if dtype in (torch.float64, torch.complex128):
+        raise NotImplementedError(f"{name} is {dtype}: {_F64_ITEM}")
+    if dtype not in _KERNEL_OF:
+        raise TypeError(f"{name} has dtype {dtype}, want float32 or "
+                        "complex64")
+
+
+def _check_operand(t, name, device, ndim, dtype):
     if t.device != device:
-        raise ValueError(f"K1: {name} is on {t.device}, x on {device}")
-    if t.dtype in (torch.complex64, torch.complex128, torch.float64):
-        raise NotImplementedError(
-            f"K1 takes float32 only; {name} is {t.dtype}: the complex product "
-            "(kernel K2) and float64 on CUDA come with ROADMAP slice 2")
-    if t.dtype != torch.float32:
-        raise TypeError(f"K1: {name} has dtype {t.dtype}, want float32")
+        raise ValueError(f"{name} is on {t.device}, x on {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, the operator {dtype}")
     if t.ndim != ndim or not t.is_contiguous():
-        raise ValueError(f"K1: {name} must be a contiguous {ndim}-d tensor, "
+        raise ValueError(f"{name} must be a contiguous {ndim}-d tensor, "
                          f"got shape {tuple(t.shape)}")
     if t.data_ptr() % 16:
-        raise ValueError(f"K1: {name} is not 16-byte aligned")
+        raise ValueError(f"{name} is not 16-byte aligned")
 
 
 def _check_meta(t_off, s_off, mirror, nb, device):
@@ -78,33 +118,33 @@ def _check_meta(t_off, s_off, mirror, nb, device):
                         ("mirror", mirror, torch.bool)):
         if (t.device != device or t.dtype != dt or t.shape != (nb,)
                 or not t.is_contiguous()):
-            raise ValueError(f"K1: {name} must be a contiguous ({nb},) {dt} "
+            raise ValueError(f"{name} must be a contiguous ({nb},) {dt} "
                              f"tensor on {device}")
 
 
-def _bucket_rows(data, device):
+def _bucket_rows(data, device, dtype):
     """Host rows of the device bucket table, plus max dims and rank."""
     rows, first, max_dim, max_r = [], 0, 1, 1
     for kind in ("dense", "lr"):
         for entry in data[kind]:
             if kind == "dense":
                 D, t_off, s_off, mirror = entry
-                _check_operand(D, "D", device, 3)
+                _check_operand(D, "D", device, 3, dtype)
                 nb, pt, ps = D.shape
                 a, v, r = D.data_ptr(), 0, 0
             else:
                 Ut, V, t_off, s_off, mirror = entry
-                _check_operand(Ut, "Ut", device, 3)
-                _check_operand(V, "V", device, 3)
+                _check_operand(Ut, "Ut", device, 3, dtype)
+                _check_operand(V, "V", device, 3, dtype)
                 nb, r, pt = Ut.shape
                 ps = V.shape[2]
                 if V.shape[:2] != (nb, r):
-                    raise ValueError(f"K1: Ut {tuple(Ut.shape)} and V "
+                    raise ValueError(f"Ut {tuple(Ut.shape)} and V "
                                      f"{tuple(V.shape)} do not match")
                 a, v = Ut.data_ptr(), V.data_ptr()
                 max_r = max(max_r, r)
             if pt % 4 or ps % 4:
-                raise ValueError(f"K1: padded block dims ({pt}, {ps}) must be "
+                raise ValueError(f"padded block dims ({pt}, {ps}) must be "
                                  "multiples of 4")
             _check_meta(t_off, s_off, mirror, nb, device)
             if nb == 0:
@@ -129,40 +169,96 @@ def _extent(data) -> int:
 
 
 class BucketTable:
-    """One operator's bucket data as K1 takes it, checked once.
+    """One operator's bucket data as K1 or K2 takes it, checked once.
 
-    `extent` is where the furthest block segment ends, max(t_off + pt,
-    s_off + ps).  A product reads and writes both sides of every block
-    (mirror terms, and the plain version's masked ones), so x and y must
-    both hold `extent` rows; the wrapper checks that on every call, since
-    the kernel itself skips rows past the end of y and reads zeros past
-    the end of x.  On CUDA the table also holds the device table of bucket
-    descriptors (struct Bucket in the .cu), built after every operand was
-    checked.  It names the data's tensors by pointer: it stays valid while
-    the data's containers and tensors do (HMatrix builds one at its first
-    product and drops it on copy).
+    `dtype` is the data's dtype, which picks the kernel; a product refuses
+    data of another dtype.  `extent` is where the furthest block segment
+    ends, max(t_off + pt, s_off + ps).  A product reads and writes both
+    sides of every block (mirror terms, and the plain version's masked
+    ones), so x and y must both hold `extent` rows; the wrapper checks that
+    on every call, since the kernels themselves skip rows past the end of
+    y and read zeros past the end of x.  On CUDA the table also holds the
+    device table of bucket descriptors (struct Bucket in the .cu files),
+    built after every operand was checked.  It names the data's tensors by
+    pointer: it stays valid while the data's containers and tensors do
+    (HMatrix builds one at its first product and drops it on copy and
+    whenever its buckets are replaced).
     """
 
     def __init__(self, data, device):
         device = torch.device(device)
         if device.type not in ("cpu", "cuda"):
-            raise ValueError(f"K1: unsupported device {device}")
+            raise ValueError(f"unsupported device {device}")
         self.device = device
+        self.dtype = _data_dtype(data)
         self.extent = _extent(data)
         self.table = None
         if device.type == "cuda":
-            rows, self.n_blocks, self.max_dim, self.max_r = _bucket_rows(
-                data, device)
-            self.n_buckets = len(rows)
-            self.table = torch.tensor(rows, dtype=torch.int64).reshape(
-                -1, _TABLE_FIELDS).to(device)
+            self.n_blocks = 0
+            if self.dtype is not None:
+                _check_dtype(self.dtype, "the operator")
+                rows, self.n_blocks, self.max_dim, self.max_r = _bucket_rows(
+                    data, device, self.dtype)
+                self.n_buckets = len(rows)
+                self.table = torch.tensor(rows, dtype=torch.int64).reshape(
+                    -1, _TABLE_FIELDS).to(device)
+
+
+def _conj_flags(trans: str, sym: str):
+    """(conjugate the x[s:] -> y[t:] direction, the x[t:] -> y[s:] one) of
+    K2: 'N' runs the main term forward and the mirror backward, 'T' / 'C'
+    the other way round; the main term is conjugated for 'C', the mirror
+    for (sym == 'H') != (trans == 'C') (plain version: conj_main,
+    conj_mirror)."""
+    conj_main = trans == "C"
+    conj_mirror = (sym == "H") != (trans == "C")
+    if trans == "N":
+        return False, conj_mirror
+    return conj_mirror, conj_main
+
+
+def _launch(name, table, x, y, trans, sym):
+    """One launch of kernel `name` over `table`, x (L, k) into the zeroed
+    y (ny, k); x and y hold the kernel's dtype."""
+    lib = _library(name)
+    device = x.device
+    L, k = x.shape
+    stream = torch.cuda.current_stream(device).cuda_stream
+    args = (table.table.data_ptr(), table.n_buckets, table.n_blocks,
+            x.data_ptr(), L, y.data_ptr(), y.shape[0], k, int(trans != "N"),
+            int(sym != "N"))
+    with torch.cuda.device(device):
+        if name == KERNEL_NAME:
+            rc = lib.hm_k1_launch(*args, table.max_dim, table.max_r, stream)
+            err = lib.hm_error_string
+        else:
+            rc = lib.hm_k2_launch(*args, *map(int, _conj_flags(trans, sym)),
+                                  table.max_dim, table.max_r, stream)
+            err = lib.hm_k2_error_string
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
+                           f"({err(rc).decode()})")
+    LAUNCH_COUNTS[name] += 1
+
+
+def real_view_product(real_product, x_pad, ny_pad: int):
+    """H x_pad for a real f32 operator H and a complex64 x_pad (L, k): H is
+    real, so H (a + ib) = H a + i H b.  x_pad is read as its (L, 2k) f32
+    view (re, im interleaved per column, no copy) and
+    `real_product(x_real, y_real)` adds H x_real into the (ny_pad, 2k) f32
+    view of the zeroed complex result, which is returned."""
+    L, k = x_pad.shape
+    y = torch.zeros((ny_pad, k), dtype=torch.complex64, device=x_pad.device)
+    real_product(torch.view_as_real(x_pad).reshape(L, 2 * k),
+                 torch.view_as_real(y).reshape(ny_pad, 2 * k))
+    return y
 
 
 def apply_hmatrix_cuda(data, x_pad, ny_pad: int, trans: str, sym: str,
                        table: BucketTable | None = None):
-    """y_pad (ny_pad, k) = H^(trans) x_pad through kernel K1 (CUDA tensors)
-    or its plain version (CPU tensors).  `table`: the data's BucketTable,
-    built here when not given.  See the module docstring."""
+    """y_pad (ny_pad, k) = H^(trans) x_pad through kernel K1 or K2 (CUDA
+    tensors) or their plain version (CPU tensors).  `table`: the data's
+    BucketTable, built here when not given.  See the module docstring."""
     if trans not in ("N", "T", "C"):
         raise ValueError(f"trans must be 'N', 'T' or 'C', got {trans!r}")
     if sym not in ("N", "S", "H"):
@@ -171,29 +267,31 @@ def apply_hmatrix_cuda(data, x_pad, ny_pad: int, trans: str, sym: str,
     if table is None:
         table = BucketTable(data, device)
     elif table.device != device:
-        raise ValueError(f"K1: the bucket table is on {table.device}, x on "
+        raise ValueError(f"the bucket table is on {table.device}, x on "
                          f"{device}")
+    if table.dtype != _data_dtype(data):
+        raise ValueError(f"the bucket table was built for {table.dtype} "
+                         f"data, not {_data_dtype(data)}")
     L = x_pad.shape[0]
     if table.extent > min(L, ny_pad):
-        raise ValueError(f"K1: a block segment ends at row {table.extent}, "
+        raise ValueError(f"a block segment ends at row {table.extent}, "
                          f"past x ({L} rows) or y ({ny_pad} rows)")
     if device.type == "cpu":
         return apply_hmatrix_padded(data, x_pad, ny_pad, trans, sym)
-    _check_operand(x_pad, "x_pad", device, 2)
+    _check_dtype(x_pad.dtype, "x_pad")
+    dtype = (x_pad.dtype if table.dtype is None
+             else torch.promote_types(table.dtype, x_pad.dtype))
     k = x_pad.shape[1]
-    y = torch.zeros((ny_pad, k), dtype=torch.float32, device=device)
     if table.n_blocks == 0 or k == 0:
-        return y
-    lib = _library()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        rc = lib.hm_k1_launch(table.table.data_ptr(), table.n_buckets,
-                              table.n_blocks, x_pad.data_ptr(), L,
-                              y.data_ptr(), ny_pad, k, int(trans != "N"),
-                              int(sym != "N"), table.max_dim, table.max_r,
-                              stream)
-    if rc != 0:
-        raise RuntimeError(f"K1 launch failed: CUDA error {rc} "
-                           f"({lib.hm_error_string(rc).decode()})")
-    LAUNCH_COUNTS[KERNEL_NAME] += 1
+        return torch.zeros((ny_pad, k), dtype=dtype, device=device)
+    name = _KERNEL_OF[table.dtype]
+    if table.dtype == torch.float32 and dtype == torch.complex64:
+        _check_operand(x_pad, "x_pad", device, 2, torch.complex64)
+        return real_view_product(
+            lambda xr, yr: _launch(name, table, xr, yr, trans, sym),
+            x_pad, ny_pad)
+    x_pad = x_pad.to(dtype)
+    _check_operand(x_pad, "x_pad", device, 2, dtype)
+    y = torch.zeros((ny_pad, k), dtype=dtype, device=device)
+    _launch(name, table, x_pad, y, trans, sym)
     return y

@@ -1,5 +1,5 @@
-"""Bucketed H-matrix product: block terms, the plain version of kernel K1,
-and the user-numbering entry point.
+"""Bucketed H-matrix product: block terms, the plain version of kernels K1
+and K2, and the user-numbering entry point.
 
 Counterpart of htool_python_tpu/ops/matvec.py.  The H-matrix is stored as
 buckets of equally-padded blocks; a product is, per bucket:
@@ -10,10 +10,11 @@ Low-rank buckets do the two-stage contraction  w = V x_s ; y_t += U w.
 Symmetric ('S') / hermitian ('H') storage keeps one triangle only; blocks
 flagged `mirror` additionally contribute their (conj-)transpose.
 
-`apply_hmatrix_padded` is the plain PyTorch version of kernel K1
-(ops/cuda_matvec.py): the CPU path, and what the kernel is held against on
-the card.  `index_add_` does the scatter; on CUDA its summation order is
-not deterministic, on the CPU it is.
+`apply_hmatrix_padded` is the plain PyTorch version of kernels K1 (real
+f32) and K2 (complex64), both in ops/cuda_matvec.py: the CPU path, and
+what the kernels are held against on the card.  `index_add_` does the
+scatter; on CUDA its summation order is not deterministic, on the CPU it
+is.
 """
 
 from __future__ import annotations
@@ -88,7 +89,8 @@ def apply_hmatrix_padded(data, x_pad, ny_pad: int, trans: str, sym: str):
                mirror)
     x_pad: (ns_pad, k) padded input (zeros in the pad region).
     trans: 'N' | 'T' | 'C'.  sym: 'N' | 'S' | 'H' (how mirrors transform).
-    Returns y_pad (ny_pad, k).
+    Returns y_pad (ny_pad, k) in the promoted dtype of data and x (a real
+    operator applied to a complex x is cast to complex, bucket by bucket).
     """
     dtype = result_dtype(data, x_pad.dtype)
     x_pad = x_pad.to(dtype)
@@ -99,6 +101,7 @@ def apply_hmatrix_padded(data, x_pad, ny_pad: int, trans: str, sym: str):
     conj_mirror = (sym == "H") != (trans == "C")
 
     for D, t_off, s_off, mirror in data["dense"]:
+        D = D.to(dtype)
         pt, ps = D.shape[1], D.shape[2]
         m = mirror.to(dtype)[:, None, None]
         if trans == "N":
@@ -117,6 +120,7 @@ def apply_hmatrix_padded(data, x_pad, ny_pad: int, trans: str, sym: str):
                                           conj=conj_mirror) * m)
 
     for Ut, V, t_off, s_off, mirror in data["lr"]:
+        Ut, V = Ut.to(dtype), V.to(dtype)
         pt, ps = Ut.shape[2], V.shape[2]
         m = mirror.to(dtype)[:, None, None]
         if trans == "N":
@@ -139,9 +143,9 @@ def apply_hmatrix_padded(data, x_pad, ny_pad: int, trans: str, sym: str):
 def apply_hmatrix_user(data, perm_in, inv_perm_out, x2d, pad_len: int,
                        trans: str, sym: str, nout: int, table=None):
     """End-to-end product in user numbering: permute in -> pad -> bucketed
-    product (kernel K1's wrapper, with the data's BucketTable `table`) ->
-    un-permute.  perm_in / inv_perm_out are int64 tensors on x2d's
-    device."""
+    product (the wrapper of kernels K1 and K2, with the data's BucketTable
+    `table`) -> un-permute.  perm_in / inv_perm_out are int64 tensors on
+    x2d's device."""
     from .cuda_matvec import apply_hmatrix_cuda
 
     dtype = result_dtype(data, x2d.dtype)

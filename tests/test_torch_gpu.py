@@ -1,11 +1,12 @@
-"""Kernel K1 against its plain version on the card (skips without one).
+"""Kernels K1 and K2 against their plain version on the card (skips
+without one).
 
 Run on a machine with a CUDA device:
     python -m pytest --noconftest tests/test_torch_gpu.py
 (--noconftest: the suite's conftest imports JAX, which this file does not
 need and a GPU machine may lack.)
-The kernel adds into y with f32 atomics in an order that changes from run
-to run, so it agrees with the plain version to 1e-5 relative.
+The kernels add into y with f32 atomics in an order that changes from run
+to run, so they agree with the plain version to 1e-5 relative.
 """
 
 import numpy as np
@@ -13,7 +14,10 @@ import pytest
 import torch
 
 import htool_python_torch as T
-from htool_python_torch.models.kernels import inverse_distance_kernel
+from htool_python_torch.models.geometry import \
+    create_random_points_on_sphere
+from htool_python_torch.models.kernels import (hermitian_phase_kernel,
+                                               inverse_distance_kernel)
 from htool_python_torch.ops import cuda_matvec
 from htool_python_torch.ops.matvec import apply_hmatrix_padded
 
@@ -59,7 +63,7 @@ def test_k1_matches_plain_version(cuda_device):
         y_host = hm.matvec(x_user.cpu().numpy())
         assert (np.linalg.norm(y_dev.cpu().numpy() - y_host)
                 <= 1e-5 * np.linalg.norm(y_host))
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(NotImplementedError, match="item 22"):
         cuda_matvec.apply_hmatrix_cuda(hm._data, x.double(), L, "N",
                                        symmetry)
     # a y one row short of the furthest block segment is refused
@@ -67,3 +71,122 @@ def test_k1_matches_plain_version(cuda_device):
     with pytest.raises(ValueError, match="past x"):
         cuda_matvec.apply_hmatrix_cuda(hm._data, x[:table.extent],
                                        table.extent - 1, "N", symmetry, table)
+
+
+def _symmetric_phase_kernel(x, y):
+    """exp(10 i r) / (0.1 + r): complex and symmetric, not hermitian."""
+    r = torch.sqrt(torch.sum((x - y) ** 2, dim=-1))
+    return torch.exp(10j * r) / (0.1 + r)
+
+
+def _complex_operators(device, n=3000, eps=1e-4):
+    points = create_random_points_on_sphere(n, np.random.RandomState(1))
+    builder = T.ClusterTreeBuilder()
+    builder.set_maximal_leaf_size(64)
+    cluster = builder.create_cluster_tree(points, 2)
+    ops = {}
+    for symmetry, UPLO, kernel in (
+            ("N", "N", hermitian_phase_kernel(10.0)),
+            ("H", "L", hermitian_phase_kernel(10.0)),
+            ("H", "U", hermitian_phase_kernel(10.0)),
+            ("S", "L", _symmetric_phase_kernel)):
+        hb = T.HMatrixTreeBuilder(eps, 10.0, symmetry, UPLO, device=device)
+        hb.set_dtype(torch.complex64)
+        ops[symmetry, UPLO] = hb.build(
+            T.KernelGenerator(kernel, points, points, is_complex=True,
+                              device=device), cluster, cluster)
+    return ops
+
+
+@pytest.mark.gpu
+def test_k2_matches_plain_version(cuda_device):
+    for (symmetry, UPLO), hm in _complex_operators(cuda_device).items():
+        L, n = hm._pad_len, hm.shape[0]
+        table = hm._bucket_table()
+        assert table.dtype == torch.complex64
+        for trans in ("N", "T", "C"):
+            for k in (1, 2, 3, 8):
+                g = torch.Generator(cuda_device).manual_seed(k)
+                x = torch.zeros((L, k), dtype=torch.complex64,
+                                device=cuda_device)
+                x[:n] = torch.complex(
+                    torch.rand((n, k), device=cuda_device, generator=g),
+                    torch.rand((n, k), device=cuda_device, generator=g))
+                before = cuda_matvec.LAUNCH_COUNTS[cuda_matvec.K2_NAME]
+                y = cuda_matvec.apply_hmatrix_cuda(hm._data, x, L, trans,
+                                                   symmetry, table)
+                assert (cuda_matvec.LAUNCH_COUNTS[cuda_matvec.K2_NAME]
+                        == before + 1)
+                y_plain = apply_hmatrix_padded(hm._data, x, L, trans,
+                                               symmetry)
+                err = (y - y_plain).abs().max() / y_plain.abs().max()
+                assert err <= 1e-5, (symmetry, UPLO, trans, k, float(err))
+        # a real f32 x is promoted, and K2 still runs
+        xr = torch.rand((L, 3), device=cuda_device)
+        y = cuda_matvec.apply_hmatrix_cuda(hm._data, xr, L, "N", symmetry,
+                                           table)
+        y_plain = apply_hmatrix_padded(hm._data, xr, L, "N", symmetry)
+        assert y.dtype == torch.complex64
+        assert (y - y_plain).abs().max() <= 1e-5 * y_plain.abs().max()
+    with pytest.raises(NotImplementedError, match="item 22"):
+        cuda_matvec.apply_hmatrix_cuda(hm._data, x.to(torch.complex128), L,
+                                       "N", symmetry, table)
+
+
+@pytest.mark.gpu
+def test_k1_on_the_real_view_of_a_complex_x(cuda_device):
+    """A complex x on a real f32 operator runs K1 over its 2k real
+    columns (H real: H (a + ib) = H a + i H b)."""
+    points = np.random.RandomState(2).rand(3, 3000)
+    builder = T.ClusterTreeBuilder()
+    builder.set_maximal_leaf_size(64)
+    cluster = builder.create_cluster_tree(points, 2)
+    for symmetry, UPLO in (("N", "N"), ("S", "L")):
+        hb = T.HMatrixTreeBuilder(1e-3, 10.0, symmetry, UPLO,
+                                  device=cuda_device)
+        hb.set_dtype(torch.float32)
+        hm = hb.build(T.KernelGenerator(inverse_distance_kernel(0.1),
+                                        points, points, device=cuda_device),
+                      cluster, cluster)
+        L = hm._pad_len
+        for trans in ("N", "T", "C"):
+            for k in (1, 4):
+                x = torch.zeros((L, k), dtype=torch.complex64,
+                                device=cuda_device)
+                x[:3000] = torch.randn((3000, k), dtype=torch.complex64,
+                                       device=cuda_device)
+                before = dict(cuda_matvec.LAUNCH_COUNTS)
+                y = cuda_matvec.apply_hmatrix_cuda(hm._data, x, L, trans,
+                                                   symmetry)
+                assert (cuda_matvec.LAUNCH_COUNTS[cuda_matvec.KERNEL_NAME]
+                        == before[cuda_matvec.KERNEL_NAME] + 1)
+                assert (cuda_matvec.LAUNCH_COUNTS[cuda_matvec.K2_NAME]
+                        == before[cuda_matvec.K2_NAME])
+                y_plain = apply_hmatrix_padded(hm._data, x, L, trans,
+                                               symmetry)
+                err = (y - y_plain).abs().max() / y_plain.abs().max()
+                assert err <= 1e-5, (symmetry, trans, k, float(err))
+
+
+@pytest.mark.gpu
+def test_product_after_recompression_on_the_card(cuda_device):
+    """Recompression replaces the buckets; the next product must build a
+    new bucket table (the old one names freed tensors)."""
+    hm = _complex_operators(cuda_device, n=2000, eps=1e-6)[("H", "L")]
+    n = hm.shape[0]
+    hm * np.ones(n, np.complex64)  # builds the bucket table
+    bytes_before = sum(t.numel() * t.element_size()
+                       for e in hm._data["dense"] + hm._data["lr"]
+                       for t in e[:-3])
+    T.recompression(hm, 1e-4)
+    bytes_after = sum(t.numel() * t.element_size()
+                      for e in hm._data["dense"] + hm._data["lr"]
+                      for t in e[:-3])
+    assert bytes_after < bytes_before
+    x = (np.random.RandomState(3).rand(n)
+         + 1j * np.random.RandomState(4).rand(n)).astype(np.complex64)
+    for trans in ("N", "T", "C"):
+        A = hm.to_dense_in_user_numbering()
+        A = {"N": A, "T": A.T, "C": A.conj().T}[trans]
+        y = hm.matvec(x, trans)
+        assert np.linalg.norm(y - A @ x) <= 1e-5 * np.linalg.norm(A @ x)
