@@ -4,7 +4,7 @@
 Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 chip_smoke.py            # headline N = 40000, Helmholtz N = 100000
-    python3 chip_smoke.py --n 8000 --n-helm 20000   # a smaller rehearsal
+    python3 chip_smoke.py --n 24000 --n-helm 20000   # a smaller rehearsal
 
 Phases, in this order, one line each (`phase <name> {json}`):
   device:       card name and power limit, kernel build seconds, ptxas
@@ -45,9 +45,10 @@ Phases, in this order, one line each (`phase <name> {json}`):
                 storage N (the Helmholtz buckets), H-L, H-U (hermitian
                 kernel) and S-L (the complex-symmetric exp(10i r) / (0.1 +
                 r)) on smaller sphere assemblies x k in {1, 4, 8}, each
-                within 1e-5 relative, both timed with CUDA events; and the
-                seconds of both recompression paths (the SVD-form trim and
-                the streaming QR + SVD) on the H-L operator.
+                within 1e-5 relative, both timed with CUDA events;
+  recompression_paths: seconds of both recompression paths (the SVD-form
+                trim and the streaming QR + SVD) on the H-L operator, with
+                the ranks and bytes they leave.
 Then a `kernels` JSON line, the nvidia-smi line, and last the JSON ok
 line.  Any failure raises and exits non-zero; without a CUDA device the
 script exits non-zero before printing any result.  Imports nothing of JAX.
@@ -66,8 +67,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
-K1_TOL = 1e-5  # f32 atomic summation order vs the plain version
-K2_TOL = 1e-5  # the same, for complex64
+KERNEL_TOL = 1e-5  # f32 atomic summation order vs the plain version
 SAMPLED_ERR_MAX = 1e-3  # the headline epsilon
 HELM_EPS = 1e-6
 HELM_ERR_MAX = 2 * HELM_EPS  # complex64 round-off is of the order of eps
@@ -280,8 +280,13 @@ def host_ms(torch, hm, prepared, reps=100):
     return (t1 - t0) / reps * 1e3
 
 
-def k1_cases(torch, operators):
-    """K1 against its plain version for every case."""
+def kernel_cases(torch, operators, phase, dtype, transes, ks=(1, 4, 8),
+                 reps=30, plain_reps=5):
+    """A kernel against its plain version on the card for every operator
+    x trans x k, with x of `dtype`; both timed with CUDA events.  One line
+    `phase <phase>` per case; fails above the kernels' tolerance (f32
+    atomics sum in a varying order).  These launches are checks, not the
+    main path."""
     from htool_python_torch.ops.cuda_matvec import apply_hmatrix_cuda
     from htool_python_torch.ops.matvec import apply_hmatrix_padded
 
@@ -290,62 +295,30 @@ def k1_cases(torch, operators):
         L, n = hm._pad_len, hm.shape[0]
         data, table = hm._product_data(), hm._bucket_table()
         g = torch.Generator(hm.device).manual_seed(7)
-        for trans in ("N", "T"):
-            for k in (1, 4, 8):
-                x = torch.zeros((L, k), device=hm.device)
-                x[:n] = torch.rand((n, k), device=hm.device, generator=g)
+        for trans in transes:
+            for k in ks:
+                x = torch.zeros((L, k), dtype=dtype, device=hm.device)
+                x[:n] = torch.rand((n, k), dtype=dtype, device=hm.device,
+                                   generator=g)
                 y = apply_hmatrix_cuda(data, x, L, trans, symmetry, table)
                 y_plain = apply_hmatrix_padded(data, x, L, trans, symmetry)
                 torch.cuda.synchronize()
                 abs_err = float((y - y_plain).abs().max())
                 rel = abs_err / float(y_plain.abs().max())
                 ms = cuda_ms(torch, lambda: apply_hmatrix_cuda(
-                    data, x, L, trans, symmetry, table), reps=30)
+                    data, x, L, trans, symmetry, table), reps=reps)
                 plain_ms = cuda_ms(torch, lambda: apply_hmatrix_padded(
-                    data, x, L, trans, symmetry), reps=5, warmup=1)
+                    data, x, L, trans, symmetry), reps=plain_reps, warmup=1)
                 case = dict(storage=symmetry + ("-" + UPLO if UPLO != "N"
                                                 else ""),
                             N=n, trans=trans, k=k, max_rel_err=rel,
                             max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
-                emit("k1_check", **case)
-                check(np.isfinite(rel) and rel <= K1_TOL,
-                      f"K1 disagrees with its plain version: {case}")
+                emit(phase, **case)
+                check(y.dtype == y_plain.dtype and np.isfinite(rel)
+                      and rel <= KERNEL_TOL,
+                      f"{phase}: the kernel disagrees with its plain "
+                      f"version: {case}")
                 results.append(case)
-    return results
-
-
-def k1_complex_x_cases(torch, hm):
-    """K1 on the real view of a complex64 x against the plain version (the
-    launches here are checks, not the main path)."""
-    from htool_python_torch.ops.cuda_matvec import apply_hmatrix_cuda
-    from htool_python_torch.ops.matvec import apply_hmatrix_padded
-
-    L, n = hm._pad_len, hm.shape[0]
-    data, table = hm._product_data(), hm._bucket_table()
-    g = torch.Generator(hm.device).manual_seed(11)
-    results = []
-    for trans in ("N", "C"):
-        for k in (1, 4):
-            x = torch.zeros((L, k), dtype=torch.complex64, device=hm.device)
-            x[:n] = torch.rand((n, k), dtype=torch.complex64,
-                               device=hm.device, generator=g)
-            y = apply_hmatrix_cuda(data, x, L, trans, "N", table)
-            y_plain = apply_hmatrix_padded(data, x, L, trans, "N")
-            torch.cuda.synchronize()
-            abs_err = float((y - y_plain).abs().max())
-            rel = abs_err / float(y_plain.abs().max())
-            case = dict(N=n, trans=trans, k=k, max_rel_err=rel,
-                        max_abs_err=abs_err,
-                        ms=cuda_ms(torch, lambda: apply_hmatrix_cuda(
-                            data, x, L, trans, "N", table), reps=30),
-                        plain_ms=cuda_ms(torch, lambda: apply_hmatrix_padded(
-                            data, x, L, trans, "N"), reps=5, warmup=1))
-            emit("k1_complex_x", **case)
-            check(y.dtype == torch.complex64 and np.isfinite(rel)
-                  and rel <= K1_TOL,
-                  f"K1 on a complex x disagrees with the plain version: "
-                  f"{case}")
-            results.append(case)
     return results
 
 
@@ -458,42 +431,6 @@ def helmholtz(T, torch, n, seed, device, counts, copy_gbs):
     return hm, timing
 
 
-def k2_cases(torch, operators):
-    """K2 against its plain version for every case."""
-    from htool_python_torch.ops.cuda_matvec import apply_hmatrix_cuda
-    from htool_python_torch.ops.matvec import apply_hmatrix_padded
-
-    results = []
-    for (symmetry, UPLO), hm in operators.items():
-        L, n = hm._pad_len, hm.shape[0]
-        data, table = hm._product_data(), hm._bucket_table()
-        g = torch.Generator(hm.device).manual_seed(7)
-        for trans in ("N", "T", "C"):
-            for k in (1, 4, 8):
-                x = torch.zeros((L, k), dtype=torch.complex64,
-                                device=hm.device)
-                x[:n] = torch.rand((n, k), dtype=torch.complex64,
-                                   device=hm.device, generator=g)
-                y = apply_hmatrix_cuda(data, x, L, trans, symmetry, table)
-                y_plain = apply_hmatrix_padded(data, x, L, trans, symmetry)
-                torch.cuda.synchronize()
-                abs_err = float((y - y_plain).abs().max())
-                rel = abs_err / float(y_plain.abs().max())
-                ms = cuda_ms(torch, lambda: apply_hmatrix_cuda(
-                    data, x, L, trans, symmetry, table), reps=20)
-                plain_ms = cuda_ms(torch, lambda: apply_hmatrix_padded(
-                    data, x, L, trans, symmetry), reps=3, warmup=1)
-                case = dict(storage=symmetry + ("-" + UPLO if UPLO != "N"
-                                                else ""),
-                            N=n, trans=trans, k=k, max_rel_err=rel,
-                            max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
-                emit("k2_check", **case)
-                check(np.isfinite(rel) and rel <= K2_TOL,
-                      f"K2 disagrees with its plain version: {case}")
-                results.append(case)
-    return results
-
-
 def recompression_times(T, torch, hm):
     """Seconds of both recompression paths on deep copies of `hm` (the
     original is untouched), with the ranks and bytes they leave."""
@@ -553,9 +490,9 @@ def main(argv=None) -> int:
     emit("device", nvidia_smi=smi, device=name, count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda,
          build_s=time.perf_counter() - t0, nvcc_s=built,
-         ptxas={name: [ln.strip() for ln in cuda_build.ptxas_report(name)
-                       .splitlines() if "registers" in ln or "spill" in ln]
-                for name in (KERNEL_NAME, K2_NAME)},
+         ptxas={lib: [ln.strip() for ln in cuda_build.ptxas_report(lib)
+                      .splitlines() if "registers" in ln or "spill" in ln]
+                for lib in (KERNEL_NAME, K2_NAME)},
          svd_check=svd_check(torch, device))
 
     counts = {}
@@ -585,9 +522,11 @@ def main(argv=None) -> int:
     operators = {("N", "N"): hm}
     for sym in (("S", "L"), ("S", "U")):
         operators[sym] = build_operator(T, torch, pts_sym, *sym, device)[0]
-    cases = k1_cases(torch, operators)
+    cases = kernel_cases(torch, operators, "k1_check", torch.float32,
+                         ("N", "T"))
     del operators
-    cx_cases = k1_complex_x_cases(torch, hm)
+    cx_cases = kernel_cases(torch, {("N", "N"): hm}, "k1_complex_x",
+                            torch.complex64, ("N", "C"), ks=(1, 4))
     del hm, data
     torch.cuda.empty_cache()
 
@@ -603,7 +542,8 @@ def main(argv=None) -> int:
                       (("H", "U"), hermitian_phase_kernel(10.0)),
                       (("S", "L"), symmetric_phase_kernel(torch))):
         c_ops[sym] = build_complex(T, torch, pts_k2, kern, *sym, device)[0]
-    k2 = k2_cases(torch, c_ops)
+    k2 = kernel_cases(torch, c_ops, "k2_check", torch.complex64,
+                      ("N", "T", "C"), reps=20, plain_reps=3)
     emit("recompression_paths", operator=f"H-L, N={args.n_k2}",
          card=smi, **recompression_times(T, torch, c_ops[("H", "L")]))
 
