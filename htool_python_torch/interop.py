@@ -21,7 +21,8 @@ from .hmatrix.plan import BlockPlan, Bucket
 
 def from_reference_data(np_tree, device=None):
     """The port's bucket data (ops/matvec.py layout) from the reference's
-    pytree with numpy leaves.  Offsets become int32, mirror flags bool."""
+    pytree with numpy leaves.  Data arrays keep their dtype (float32/64,
+    complex64/128); offsets become int32, mirror flags bool."""
     device = resolve_device(device)
 
     def meta(t_off, s_off, mirror):

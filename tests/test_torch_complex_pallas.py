@@ -19,15 +19,16 @@ from htool_python_torch import interop
 from htool_python_torch.ops.matvec import apply_hmatrix_padded
 from htool_python_tpu.ops.matvec import split_planes
 from htool_python_tpu.ops.pallas_matvec import apply_hmatrix_pallas_complex
+from test_torch_complex import one_thread  # noqa: F401 (fixture)
 from test_torch_complex import random_pad, reference_complex_operator
 
 _STORAGES = [("N", "N"), ("S", "L")]
 
 
 def c64_operators(storages):
-    """The reference's complex64 operators (n = 300, eps 1e-4)."""
+    """The reference's complex64 operators (n = 200, eps 1e-4)."""
     return {sym: reference_complex_operator(*sym, np.complex64, eps=1e-4,
-                                            n=300)[0]
+                                            n=200)[0]
             for sym in storages}
 
 

@@ -7,6 +7,7 @@ holds the check, for the other storages.
 
 import pytest
 
+from test_torch_complex import one_thread  # noqa: F401 (fixture)
 from test_torch_complex_pallas import c64_operators, \
     check_plain_k2_against_pallas
 

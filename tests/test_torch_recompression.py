@@ -2,7 +2,8 @@
 identical input (CPU).
 
 The reference assembles a float64 and a complex128 operator on the unit
-sphere at eps 1e-6; both packages then recompress the same arrays at 1e-4:
+sphere at eps 1e-6 (its host-generator path, tests/test_torch_complex.py);
+both packages then recompress the same arrays at 1e-4:
 
 * the SVD-form path (the default after assembly): equal ranks per block,
   equal re-classed buckets, and densified operators within 1e-12;
@@ -26,10 +27,9 @@ import htool_python_torch as T
 import htool_python_tpu as H
 from htool_python_torch.models.kernels import hermitian_phase_kernel as pk
 from htool_python_torch.models.kernels import inverse_distance_kernel as pik
-from htool_python_tpu.models.kernels import hermitian_phase_kernel as rk
-from htool_python_tpu.models.kernels import inverse_distance_kernel as rik
-from test_torch_complex import clusters, hermitian_oracle, port_operator, \
-    sphere
+from test_torch_complex import ReferenceHostGenerator, clusters, \
+    hermitian_oracle, port_operator, sphere
+from test_torch_complex import one_thread  # noqa: F401 (fixture)
 
 _DTYPES = [np.float64, np.complex128]
 _ASSEMBLY_EPS, _EPS = 1e-6, 1e-4
@@ -37,17 +37,14 @@ _N = 800
 
 
 def _problem(dtype):
-    """(points, reference generator, port generator, dense oracle)."""
+    """(points, port generator, dense oracle)."""
     points = sphere(_N)
     if dtype == np.complex128:
-        return (points,
-                H.KernelGenerator(rk(10.0), points, points, is_complex=True),
-                T.KernelGenerator(pk(10.0), points, points, is_complex=True,
-                                  device="cpu"),
+        return (points, T.KernelGenerator(pk(10.0), points, points,
+                                          is_complex=True, device="cpu"),
                 hermitian_oracle(points))
     d = np.linalg.norm(points[:, :, None] - points[:, None, :], axis=0)
-    return (points, H.KernelGenerator(rik(0.1), points, points),
-            T.KernelGenerator(pik(0.1), points, points, device="cpu"),
+    return (points, T.KernelGenerator(pik(0.1), points, points, device="cpu"),
             1.0 / (0.1 + d))
 
 
@@ -55,12 +52,12 @@ def _problem(dtype):
 def reference_operators():
     out = {}
     for dtype in _DTYPES:
-        points, ref_gen, _, _ = _problem(dtype)
+        points, _, A = _problem(dtype)
         ref_cluster, port_cluster = clusters(points, 32)
         hb = H.HMatrixTreeBuilder(_ASSEMBLY_EPS, 10.0, "N", "N")
         hb.set_dtype(dtype)
-        out[dtype] = (hb.build(ref_gen, ref_cluster, ref_cluster),
-                      port_cluster)
+        out[dtype] = (hb.build(ReferenceHostGenerator(A), ref_cluster,
+                               ref_cluster), port_cluster)
     return out
 
 
@@ -185,7 +182,7 @@ def test_recompression_of_the_ports_own_assembly(dtype):
     """The port's assembly leaves SVD pairs (V with orthonormal rows, the
     rows of Ut orthogonal), so the O(bytes) trim and the streaming QR + SVD
     agree on its operators, and both stay within eps of the oracle."""
-    points, _, port_gen, A = _problem(dtype)
+    points, port_gen, A = _problem(dtype)
     port_cluster = clusters(points, 32)[1]
     hb = T.HMatrixTreeBuilder(_ASSEMBLY_EPS, 10.0, "N", "N", device="cpu")
     hb.set_dtype(torch.complex128 if dtype == np.complex128
