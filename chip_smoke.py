@@ -48,7 +48,31 @@ Phases, in this order, one line each (`phase <name> {json}`):
                 within 1e-5 relative, both timed with CUDA events;
   recompression_paths: seconds of both recompression paths (the SVD-form
                 trim and the streaming QR + SVD) on the H-L operator, with
-                the ranks and bytes they leave.
+                the ranks and bytes they leave;
+  distributed:  the reference's 2-partition stage — N points in the unit
+                ball (seed 1), a 2-partition cluster, the headline kernel
+                and eps — through DefaultApproximationBuilder: build
+                seconds per block row, the global product ms (k = 1 and 8)
+                from a device-resident chain through the distributed
+                operator's device apply, the sampled error on 200 rows
+                (<= 1e-3) and K1's launches per product (one per block row);
+  ddm:          the reference's ddm_gmres stage — N = 20000 points, 4
+                partitions, eps 1e-4, f32 — DefaultApproximationBuilder ->
+                DDMSolverBuilder(op, block_diagonal_hmatrix) ->
+                facto_one_level (batched dense LU, inverse) -> ASM
+                right-preconditioned GMRES (restart 60, tol 1e-6, at most
+                300 iterations): the setup split, peak memory, max |I - A
+                A^-1| per subdomain, and for each solve (`ddm_solve` lines:
+                cold, warm, warm under each of the launch structures
+                'per_bucket' and 'seq', 4 right-hand sides) its iterations,
+                ms per iteration, K1 launches by structure, GMRES's own
+                residual estimate (<= 1e-6), the true residual |A x - f| /
+                |f| through the distributed operator (<= 1e-5), and the
+                same residual with the operator applied in float64 (the
+                plain version on the host).
+Every kernel check (k1_check, k1_complex_x, k2_check) runs each case under
+the three launch structures of config.matvec_kernel_mode ('fused',
+'per_bucket', 'seq').
 Then a `kernels` JSON line, the nvidia-smi line, and last the JSON ok
 line.  Any failure raises and exits non-zero; without a CUDA device the
 script exits non-zero before printing any result.  Imports nothing of JAX.
@@ -71,6 +95,12 @@ KERNEL_TOL = 1e-5  # f32 atomic summation order vs the plain version
 SAMPLED_ERR_MAX = 1e-3  # the headline epsilon
 HELM_EPS = 1e-6
 HELM_ERR_MAX = 2 * HELM_EPS  # complex64 round-off is of the order of eps
+DDM_EPS = 1e-4  # the reference's ddm_gmres stage (bench.py _stage_ddm)
+DDM_TOL = 1e-6
+DDM_MAX_IT = 300
+# the true residual |A x - f| / |f| of the f32 solve, recomputed through
+# the f32 product: GMRES stops at tol 1e-6 on its own estimate
+DDM_TRUE_RES_MAX = 1e-5
 
 
 def check(cond, msg):
@@ -283,13 +313,16 @@ def host_ms(torch, hm, prepared, reps=100):
 def kernel_cases(torch, operators, phase, dtype, transes, ks=(1, 4, 8),
                  reps=30, plain_reps=5):
     """A kernel against its plain version on the card for every operator
-    x trans x k, with x of `dtype`; both timed with CUDA events.  One line
+    x trans x k x launch structure (config.matvec_kernel_mode), with x of
+    `dtype`; kernel and plain version timed with CUDA events.  One line
     `phase <phase>` per case; fails above the kernels' tolerance (f32
     atomics sum in a varying order).  These launches are checks, not the
     main path."""
-    from htool_python_torch.ops.cuda_matvec import apply_hmatrix_cuda
+    from htool_python_torch.config import get_config
+    from htool_python_torch.ops.cuda_matvec import MODES, apply_hmatrix_cuda
     from htool_python_torch.ops.matvec import apply_hmatrix_padded
 
+    cfg = get_config()
     results = []
     for (symmetry, UPLO), hm in operators.items():
         L, n = hm._pad_len, hm.shape[0]
@@ -300,25 +333,32 @@ def kernel_cases(torch, operators, phase, dtype, transes, ks=(1, 4, 8),
                 x = torch.zeros((L, k), dtype=dtype, device=hm.device)
                 x[:n] = torch.rand((n, k), dtype=dtype, device=hm.device,
                                    generator=g)
-                y = apply_hmatrix_cuda(data, x, L, trans, symmetry, table)
                 y_plain = apply_hmatrix_padded(data, x, L, trans, symmetry)
-                torch.cuda.synchronize()
-                abs_err = float((y - y_plain).abs().max())
-                rel = abs_err / float(y_plain.abs().max())
-                ms = cuda_ms(torch, lambda: apply_hmatrix_cuda(
-                    data, x, L, trans, symmetry, table), reps=reps)
                 plain_ms = cuda_ms(torch, lambda: apply_hmatrix_padded(
                     data, x, L, trans, symmetry), reps=plain_reps, warmup=1)
-                case = dict(storage=symmetry + ("-" + UPLO if UPLO != "N"
-                                                else ""),
-                            N=n, trans=trans, k=k, max_rel_err=rel,
-                            max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
-                emit(phase, **case)
-                check(y.dtype == y_plain.dtype and np.isfinite(rel)
-                      and rel <= KERNEL_TOL,
-                      f"{phase}: the kernel disagrees with its plain "
-                      f"version: {case}")
-                results.append(case)
+                for mode in MODES:
+                    cfg.matvec_kernel_mode = mode
+                    try:
+                        y = apply_hmatrix_cuda(data, x, L, trans, symmetry,
+                                               table)
+                        torch.cuda.synchronize()
+                        ms = cuda_ms(torch, lambda: apply_hmatrix_cuda(
+                            data, x, L, trans, symmetry, table), reps=reps)
+                    finally:
+                        cfg.matvec_kernel_mode = "fused"
+                    abs_err = float((y - y_plain).abs().max())
+                    rel = abs_err / float(y_plain.abs().max())
+                    case = dict(storage=symmetry + ("-" + UPLO if UPLO != "N"
+                                                    else ""),
+                                N=n, trans=trans, k=k, mode=mode,
+                                max_rel_err=rel, max_abs_err=abs_err, ms=ms,
+                                plain_ms=plain_ms)
+                    emit(phase, **case)
+                    check(y.dtype == y_plain.dtype and np.isfinite(rel)
+                          and rel <= KERNEL_TOL,
+                          f"{phase}: the kernel disagrees with its plain "
+                          f"version: {case}")
+                    results.append(case)
     return results
 
 
@@ -455,6 +495,239 @@ def recompression_times(T, torch, hm):
     return out
 
 
+def apply_chain_ms(torch, fn, n, k, dtype, device, seed, reps=(10, 110)):
+    """ms per call of fn, (n, k) -> (n, k), from a device-resident chain
+    (normalized power iteration), reps[1] - reps[0] calls over the
+    difference of the host clock around synchronize."""
+    g = torch.Generator(device).manual_seed(seed)
+    x0 = torch.rand((n, k), dtype=dtype, device=device, generator=g)
+
+    def run(count):
+        x = x0
+        for _ in range(count):
+            y = fn(x)
+            x = y * (1.0 / torch.linalg.vector_norm(y))
+        return x
+
+    run(3)
+    times = {}
+    for count in reps:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(count)
+        torch.cuda.synchronize()
+        times[count] = time.perf_counter() - t0
+    return (times[reps[1]] - times[reps[0]]) / (reps[1] - reps[0]) * 1e3
+
+
+def float64_copy(T, torch, op):
+    """The block-row operator `op` in float64 on the CPU (its products run
+    the plain version): the exact arithmetic of the operator that an f32
+    solve works with."""
+    out = T.DistributedOperator(op.target_cluster, op.source_cluster,
+                                device="cpu")
+    for p in range(op.n_partitions):
+        for local in op._global_to_local[p]:
+            h = local.hmatrix
+            data = h._product_data()
+            h64 = T.HMatrix.from_arrays(
+                h.plan, [D.double().cpu() for D, *_ in data["dense"]],
+                [(Ut.double().cpu(), V.double().cpu())
+                 for Ut, V, *_ in data["lr"]],
+                h._lr_ranks, h.epsilon, torch.float64, "cpu")
+            piece = T.LocalHMatrix(h64)
+            piece.local_source_renumbering = local.local_source_renumbering
+            out.add_global_to_local_operator(piece, p)
+    return out
+
+
+def distributed(T, torch, n, device, counts):
+    """The reference's 2-partition stage: block rows of the headline
+    operator on a 2-partition cluster, the global product through the
+    distributed operator, with K1's launches counted around one product."""
+    from htool_python_torch.models.geometry import \
+        create_random_points_in_sphere
+    from htool_python_torch.models.kernels import inverse_distance_kernel
+    from htool_python_torch.ops import cuda_matvec
+
+    points = create_random_points_in_sphere(n, np.random.RandomState(1))
+    cb = T.ClusterTreeBuilder()
+    cb.set_maximal_leaf_size(128)
+    cluster = cb.create_cluster_tree(points, 2, size_of_partition=2)
+    gen = T.KernelGenerator(inverse_distance_kernel(0.1), points, points,
+                            device=device)
+    hb = T.HMatrixTreeBuilder(1e-3, 10.0, "N", "N", device=device)
+    hb.set_dtype(torch.float32)
+    t0 = time.perf_counter()
+    approx = T.DefaultApproximationBuilder(gen, cluster, cluster, hb)
+    t_build = time.perf_counter() - t0
+    op = approx.distributed_operator
+    apply = op.build_device_apply()
+
+    rng = np.random.RandomState(2)
+    x1 = rng.rand(n).astype(np.float32)
+    cuda_matvec.reset_launch_counts()
+    y1 = op * x1
+    torch.cuda.synchronize()
+    counts.update(cuda_matvec.LAUNCH_COUNTS)
+    check(y1.shape == (n,) and np.isfinite(y1).all(),
+          "distributed product shape or values")
+    err = sampled_error(points, x1, y1, rng)
+    product = {f"k{k}": apply_chain_ms(torch, apply, n, k, torch.float32,
+                                       device, k) for k in (1, 8)}
+    info = op.get_distributed_information()
+    emit("distributed", N=n, partitions=op.n_partitions, epsilon=1e-3,
+         eta=10.0, leaf=128, dtype="float32", build_s=t_build,
+         build_profile=approx.build_profile,
+         partition_sizes=op.t_sizes.tolist(),
+         compression_ratio=float(info["Compression_ratio"]),
+         global_product_ms=product, sampled_rel_error=err,
+         launches_per_product={k: v for k, v in counts.items() if v})
+    check(err <= SAMPLED_ERR_MAX,
+          f"distributed sampled error {err} above {SAMPLED_ERR_MAX}")
+    check(counts[cuda_matvec.KERNEL_NAME] == op.n_partitions
+          and sum(counts.values()) == op.n_partitions,
+          f"a fused global product launched {counts}, not one K1 launch "
+          "per block row")
+
+
+def ddm(T, torch, n, device, counts):
+    """The reference's ddm_gmres stage: one-level ASM-preconditioned GMRES
+    on 4 partitions, solved cold, warm, warm under each of the other two
+    launch structures, and once with 4 right-hand sides; K1's launches of
+    each structure counted around the solves."""
+    from htool_python_torch.config import get_config
+    from htool_python_torch.models.geometry import \
+        create_random_points_in_sphere
+    from htool_python_torch.models.kernels import inverse_distance_kernel
+    from htool_python_torch.ops import cuda_matvec
+
+    P = 4
+    points = create_random_points_in_sphere(n, np.random.RandomState(1))
+    cb = T.ClusterTreeBuilder()
+    cb.set_maximal_leaf_size(128)
+    cluster = cb.create_cluster_tree(points, 2, size_of_partition=P)
+    gen = T.KernelGenerator(inverse_distance_kernel(0.1), points, points,
+                            device=device)
+    hb = T.HMatrixTreeBuilder(DDM_EPS, 10.0, "N", "N", device=device)
+    hb.set_dtype(torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    approx = T.DefaultApproximationBuilder(gen, cluster, cluster, hb)
+    t_rows = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    block_diag = approx.block_diagonal_hmatrix
+    t_extract = time.perf_counter() - t0
+    op = approx.distributed_operator
+    t0 = time.perf_counter()
+    solver = T.DDMSolverBuilder(op, block_diag).solver
+    solver.set_hpddm_args(
+        "-hpddm_krylov_method gmres -hpddm_schwarz_method asm "
+        f"-hpddm_max_it {DDM_MAX_IT} -hpddm_gmres_restart 60 "
+        f"-hpddm_tol {DDM_TOL}")
+    solver.facto_one_level()
+    torch.cuda.synchronize()
+    t_facto = time.perf_counter() - t0
+    peak_setup = torch.cuda.max_memory_allocated() / 1e9
+
+    # the card's f32 LU and inverse: max |I - A_i A_i^-1| per subdomain
+    inv = solver._facto[1][0]
+    inverse_err = []
+    for i, s in enumerate(solver.subdomains):
+        Ai = s.dense_tensor(device)
+        R = Ai @ inv[i, :s.size, :s.size]
+        R.diagonal().sub_(1.0)
+        inverse_err.append(float(R.abs().max()))
+        del Ai, R
+
+    # per-iteration device work without the solver's host syncs: one
+    # operator and one preconditioner application, in a chain
+    A_fn = op.build_device_apply()
+    M_fn = solver._device_preconditioner()
+    op_ms = apply_chain_ms(torch, lambda v: A_fn(M_fn(v)), n, 1,
+                           torch.float32, device, 0)
+
+    rng = np.random.RandomState(3)
+    cfg = get_config()
+    op64 = float64_copy(T, torch, op)
+
+    def solve(label, x_ref, mode="fused"):
+        k = x_ref.shape[1]
+        f = op @ x_ref
+        if k == 1:
+            x_ref, f = x_ref[:, 0], f[:, 0]
+        x = np.zeros_like(f)
+        cfg.matvec_kernel_mode = mode
+        cuda_matvec.reset_launch_counts()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solver.solve(x, f)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            cfg.matvec_kernel_mode = "fused"
+        launches = {key: v for key, v in cuda_matvec.LAUNCH_COUNTS.items()
+                    if v}
+        info = solver.get_information()
+        its = int(info["Nb_it"])
+        r = (op @ x if k > 1 else op * x) - f
+        true_res = float(np.linalg.norm(r) / np.linalg.norm(f))
+        # the same residual with the operator applied in float64: what the
+        # f32 product's rounding adds to the residual is gone from it
+        r64 = op64 @ x.astype(np.float64).reshape(n, k) - f.reshape(n, k)
+        true_res64 = float(np.linalg.norm(r64) / np.linalg.norm(f))
+        out = dict(solve=label, mode=mode, columns=k, iterations=its,
+                   seconds=seconds, ms_per_iteration=seconds * 1e3 / its,
+                   solver_residual=float(info["Residual_estimate"]),
+                   recomputed_residual=float(info["Relative_residual"]),
+                   true_residual=true_res, true_residual_f64=true_res64,
+                   solution_rel_error=float(np.linalg.norm(x - x_ref)
+                                            / np.linalg.norm(x_ref)),
+                   launches=launches)
+        emit("ddm_solve", **out)
+        check(np.isfinite(x).all(), f"ddm {label}: non-finite solution")
+        check(its <= DDM_MAX_IT and out["solver_residual"] <= DDM_TOL,
+              f"ddm {label}: GMRES did not converge: {out}")
+        check(true_res <= DDM_TRUE_RES_MAX,
+              f"ddm {label}: true residual {true_res} above "
+              f"{DDM_TRUE_RES_MAX}")
+        return out
+
+    def rhs(k):
+        return rng.rand(n, k).astype(np.float32)
+
+    # the three structures solve the same system: their iteration counts
+    # differ only by the order of the f32 atomic sums
+    x_warm = rhs(1)
+    solves = [solve("cold", rhs(1)), solve("warm", x_warm),
+              solve("warm", x_warm, "per_bucket"),
+              solve("warm", x_warm, "seq"), solve("blocked", rhs(4))]
+    by_mode = {s["mode"]: s for s in solves[1:4]}
+    for mode in ("per_bucket", "seq"):
+        name = cuda_matvec.launch_name(cuda_matvec.KERNEL_NAME, mode)
+        counts[name] = by_mode[mode]["launches"].get(name, 0)
+        check(counts[name] > 0, f"the {mode} solve never launched {name}")
+        check(set(by_mode[mode]["launches"]) == {name},
+              f"the {mode} solve launched {by_mode[mode]['launches']}")
+    its = [s["iterations"] for s in solves[1:4]]
+    check(max(its) - min(its) <= 2,
+          f"iteration counts of the three launch structures: {its}")
+    emit("ddm", N=n, partitions=P, epsilon=DDM_EPS, eta=10.0, leaf=128,
+         dtype="float32", schwarz="asm", tol=DDM_TOL, restart=60,
+         subdomain_sizes=[s.size for s in solver.subdomains],
+         setup_s={"block_rows": t_rows, "extract_block_diagonal": t_extract,
+                  "facto_one_level": t_facto},
+         build_profile=approx.build_profile,
+         peak_memory_setup_GB=peak_setup,
+         peak_memory_GB=torch.cuda.max_memory_allocated() / 1e9,
+         inverse_max_abs_err=inverse_err,
+         apply_plus_precond_chain_ms=op_ms,
+         host_ms_per_iteration=solves[1]["ms_per_iteration"] - op_ms,
+         solves=solves)
+    return solves
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=40000,
@@ -465,6 +738,10 @@ def main(argv=None) -> int:
                     help="points of the Helmholtz path (default: 100000)")
     ap.add_argument("--n-k2", type=int, default=8000,
                     help="points of the H and S K2 check assemblies")
+    ap.add_argument("--n-dist", type=int, default=40000,
+                    help="points of the distributed path (default: 40000)")
+    ap.add_argument("--n-ddm", type=int, default=20000,
+                    help="points of the DDM solve (default: 20000)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -479,7 +756,8 @@ def main(argv=None) -> int:
         create_random_points_in_sphere, create_random_points_on_sphere)
     from htool_python_torch.models.kernels import hermitian_phase_kernel
     from htool_python_torch.ops import cuda_build
-    from htool_python_torch.ops.cuda_matvec import K2_NAME, KERNEL_NAME
+    from htool_python_torch.ops.cuda_matvec import (K2_NAME, KERNEL_NAME,
+                                                    launch_name)
     from htool_python_torch.ops.matvec import stored_bytes
 
     device = torch.device("cuda")
@@ -547,28 +825,50 @@ def main(argv=None) -> int:
     emit("recompression_paths", operator=f"H-L, N={args.n_k2}",
          card=smi, **recompression_times(T, torch, c_ops[("H", "L")]))
 
-    def entry(name, source, replaces, launches, case_list, timing_):
-        head = next(c for c in case_list if c["storage"] == "N"
+    del helm, c_ops
+    torch.cuda.empty_cache()
+
+    dist_counts = {}
+    distributed(T, torch, args.n_dist, device, dist_counts)
+    ddm_counts = {}
+    ddm(T, torch, args.n_ddm, device, ddm_counts)
+
+    def entry(name, mode, source, replaces, launches, case_list, timing_):
+        mine = [c for c in case_list if c["mode"] == mode]
+        head = next(c for c in mine if c["storage"] == "N"
                     and c["trans"] == "N" and c["k"] == 1)
-        head8 = next(c for c in case_list if c["storage"] == "N"
+        head8 = next(c for c in mine if c["storage"] == "N"
                      and c["trans"] == "N" and c["k"] == 8)
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches,
-                "max_abs_err": max(c["max_abs_err"] for c in case_list),
+        return {"name": launch_name(name, mode), "route": "cuda",
+                "source": source, "replaces": replaces, "launches": launches,
+                "max_abs_err": max(c["max_abs_err"] for c in mine),
                 "ms": head["ms"], "plain_ms": head["plain_ms"],
                 "bound_ms": timing_[1]["bound_ms"],
                 "bound_by": timing_[1]["bound_by"], "library_ms": None,
                 "ms_k8": head8["ms"], "plain_ms_k8": head8["plain_ms"],
                 "bound_ms_k8": timing_[8]["bound_ms"]}
 
-    print(json.dumps({"kernels": [
-        dict(entry(KERNEL_NAME, "htool_python_torch/csrc/hmatrix_product.cu",
-                   "htool_python_tpu/ops/pallas_matvec.py:538",
+    k1_src = "htool_python_torch/csrc/hmatrix_product.cu"
+    k2_src = "htool_python_torch/csrc/hmatrix_product_complex.cu"
+    pallas = "htool_python_tpu/ops/pallas_matvec.py:"
+    kernels = [
+        dict(entry(KERNEL_NAME, "fused", k1_src, pallas + "538",
                    counts[KERNEL_NAME], cases, timing),
              max_abs_err_complex_x=max(c["max_abs_err"] for c in cx_cases)),
-        entry(K2_NAME, "htool_python_torch/csrc/hmatrix_product_complex.cu",
-              "htool_python_tpu/ops/pallas_matvec.py:571",
-              helm_counts[K2_NAME], k2, helm_timing)]}), flush=True)
+        entry(K2_NAME, "fused", k2_src, pallas + "571", helm_counts[K2_NAME],
+              k2, helm_timing)]
+    for mode, line in (("per_bucket", "522"), ("seq", "649")):
+        # K1-pb / K1-seq on the DDM solve; K2's times in this structure
+        # (complex64, the Helmholtz shapes) as extra fields
+        e = entry(KERNEL_NAME, mode, f"{k1_src} and {k2_src}", pallas + line,
+                  ddm_counts[launch_name(KERNEL_NAME, mode)], cases, timing)
+        c = entry(K2_NAME, mode, k2_src, pallas + line, 0, k2, helm_timing)
+        e["max_abs_err"] = max(e["max_abs_err"], c["max_abs_err"])
+        e.update({f"complex64_{key}": c[key] for key in
+                  ("ms", "ms_k8", "plain_ms", "plain_ms_k8", "bound_ms",
+                   "bound_ms_k8", "max_abs_err")})
+        kernels.append(e)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -7,8 +7,10 @@ truncation, dense fills, recompression) runs as batched torch ops on the
 device; the compressed product runs the hand-written CUDA kernels K1 (real
 f32, csrc/hmatrix_product.cu) and K2 (complex64,
 csrc/hmatrix_product_complex.cu) through ops/cuda_matvec.py on CUDA
-tensors, and their plain PyTorch version on CPU tensors.  Entry points run on CUDA unless the caller
-passes device='cpu'.  Nothing here imports JAX or the reference package.
+tensors, and their plain PyTorch version on CPU tensors.  Distributed
+operators (parallel/) and the one-level Schwarz DDM solver with GMRES / CG
+(solvers/) run their products through the same kernels.  Entry points run
+on CUDA unless the caller passes device='cpu'.  Nothing here imports JAX or the reference package.
 
 The names mirror the reference's public surface for the parts ported so
 far; `Complex*` aliases are the same classes (dtype is a property of the
@@ -19,6 +21,7 @@ from .config import Config, get_config, set_precision
 
 # Clustering
 from .clustering.cluster import Cluster, ClusterTreeBuilder
+from .clustering.io import read_cluster_from, write_cluster_to
 from .clustering.partitioning import (
     BoundingBoxGeometric,
     BoundingBoxRegular,
@@ -38,6 +41,25 @@ from .hmatrix.hmatrix import HMatrix, HMatrixTreeBuilder
 from .hmatrix.lowrank import LowRankMatrix
 from .hmatrix.recompression import openmp_recompression, recompression
 
+# Distributed operators
+from .parallel.builders import (
+    CustomApproximationBuilder,
+    DefaultApproximationBuilder,
+    DefaultLocalApproximationBuilder,
+)
+from .parallel.distributed_operator import DistributedOperator
+from .parallel.local_operator import (
+    LocalDenseMatrix,
+    LocalHMatrix,
+    LocalRenumbering,
+    RestrictedGlobalToLocalOperator,
+    VirtualLocalToLocalOperator,
+)
+
+# Solvers
+from .solvers.ddm import DDMSolver, DDMSolverBuilder, \
+    DDMSolverWithDenseLocalSolver
+
 # Misc
 from .utils.logger import logger, test_logger
 
@@ -46,6 +68,16 @@ ComplexLowRankMatrix = LowRankMatrix
 ComplexHMatrix = HMatrix
 ComplexHMatrixTreeBuilder = HMatrixTreeBuilder
 ComplexVirtualPartitioning = VirtualPartitioning
+ComplexDistributedOperator = DistributedOperator
+ComplexDefaultApproximationBuilder = DefaultApproximationBuilder
+ComplexDefaultLocalApproximationBuilder = DefaultLocalApproximationBuilder
+ComplexCustomApproximationBuilder = CustomApproximationBuilder
+ComplexRestrictedGlobalToLocalOperator = RestrictedGlobalToLocalOperator
+ComplexVirtualLocalToLocalOperator = VirtualLocalToLocalOperator
+ComplexDDMSolverBuilder = DDMSolverBuilder
+ComplexDDMSolverWithDenseLocalSolver = DDMSolverWithDenseLocalSolver
+Solver = DDMSolver
+ComplexSolver = DDMSolver
 
 __all__ = [n for n in dir() if not n.startswith("_")]
 

@@ -35,6 +35,21 @@ class Config:
     # chunked over the block axis so that one chunk's dominant operand
     # stays under ~this many f32 elements (2^28 = 1 GB)
     assembly_chunk_elems: int = 1 << 28
+    # launch structure of the product kernels K1 / K2 on CUDA
+    # (ops/cuda_matvec.py, the only reader): 'fused' = one launch over
+    # every bucket, 'per_bucket' = one launch per bucket, 'seq' = one
+    # launch of a persistent grid walking the buckets; any other value
+    # makes the next product raise ValueError
+    matvec_kernel_mode: str = "fused"
+    # DDM local solves (solvers/ddm.py): subdomains of at most this many
+    # dofs (or with an explicit dense matrix) go to the batched dense tier;
+    # larger H-matrix subdomains need the hierarchical (H-LU) tier, which
+    # is not ported yet (ROADMAP item 13)
+    ddm_local_dense_max: int = 6144
+    # dense tier: 'invert' forms each subdomain's inverse once at
+    # facto_one_level, so a preconditioner application is one batched
+    # GEMM; 'solve' keeps the LU factors and solves with them each time
+    ddm_dense_apply: str = "invert"
 
     def default_dtype(self, is_complex: bool) -> torch.dtype:
         return self.complex_dtype if is_complex else self.real_dtype

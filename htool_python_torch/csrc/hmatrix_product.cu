@@ -30,14 +30,29 @@
 // blocks add into the same rows of y, so results go out with f32
 // atomicAdd (their order varies from run to run), as float4 vector atomics
 // where the row segment allows.  Faster designs (row
-// ownership instead of atomics, TMA staging, a persistent grid) are later
-// work.
+// ownership instead of atomics, TMA staging) are later work.
+//
+// Launch structures.  The reference's `matvec_kernel_mode` chooses how the
+// buckets are launched; one block body (`block_product`) serves all three:
+//   * 'fused' (`_launch_fused`, pallas_matvec.py:756): one launch, one CTA
+//     per (block, column group), each CTA finds its bucket in the table;
+//   * 'per_bucket' (K1-pb, `_launch_per_bucket`, pallas_matvec.py:522): one
+//     launch per bucket, sized by that bucket's dims, no bucket search; all
+//     launches add into the one zeroed y (the reference summed one partial
+//     output per launch because a Pallas launch owns its output);
+//   * 'seq' (K1-seq, `_launch_seq`, pallas_matvec.py:649): one launch of a
+//     persistent grid (SMs x resident CTAs, from the occupancy calculator,
+//     computed once per column-group width and shared-memory size) whose
+//     CTAs walk the blocks in bucket order with a grid-stride loop.
+// All three stream the same bytes, so the same bound holds for each.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libhmatrix_product.so hmatrix_product.cu
 // (done at first use by htool_python_torch/ops/cuda_build.py).
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -199,25 +214,25 @@ __device__ void col_combine(const float* __restrict__ A, int n_rows, int n_out,
     }
 }
 
-template <int KC>
-__global__ void __launch_bounds__(kThreads)
-hmatrix_product_kernel(const Bucket* __restrict__ table, int n_buckets,
-                       const float* __restrict__ x, long long lx,
-                       float* __restrict__ y, long long ly, int k,
-                       int swapped, int symmetric, int max_dim) {
-    extern __shared__ float4 smem4[];
-    float* xs = reinterpret_cast<float*>(smem4);  // (KC, max_dim + 4)
-    float* ws = xs + (long long)(max_dim + 4) * KC;  // (max_r, KC)
-
-    // the bucket holding this block: last table row with first <= blk
-    const long long blk = blockIdx.x;
+// The bucket holding grid block `blk`: the last table row with first <= blk.
+__device__ __forceinline__ int find_bucket(const Bucket* __restrict__ table,
+                                           int n_buckets, long long blk) {
     int lo = 0, hi = n_buckets - 1;
     while (lo < hi) {
         const int mid = (lo + hi + 1) >> 1;
         if (table[mid].first <= blk) lo = mid; else hi = mid - 1;
     }
-    const Bucket B = table[lo];
-    const long long i = blk - B.first;
+    return lo;
+}
+
+// The product of block i of bucket B for the column group c0 = blockIdx.y
+// * KC, with shared memory xs (KC, max_dim + 4) followed by ws (max_r, KC).
+// All three launch structures below run this body.
+template <int KC>
+__device__ __forceinline__ void block_product(
+        const Bucket& B, long long i, const float* __restrict__ x, long long lx,
+        float* __restrict__ y, long long ly, int k, int swapped, int symmetric,
+        float* xs, float* ws) {
     const int pt = (int)B.pt, ps = (int)B.ps, r = (int)B.r;
     const int c0 = blockIdx.y * KC;
     const int kc = min(KC, k - c0);
@@ -262,41 +277,182 @@ hmatrix_product_kernel(const Bucket* __restrict__ table, int n_buckets,
     }
 }
 
+// 'fused': one CTA per (block, column group), every bucket in one launch.
 template <int KC>
-cudaError_t launch(const Bucket* table, int n_buckets, long long n_blocks,
-                   const float* x, long long lx, float* y, long long ly, int k,
-                   int swapped, int symmetric, int max_dim, int max_r,
-                   cudaStream_t stream) {
-    const size_t smem = (size_t)(max_dim + 4 + max_r) * KC * sizeof(float);
-    if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            hmatrix_product_kernel<KC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
-        if (e != cudaSuccess) return e;
-    }
-    const dim3 grid((unsigned)n_blocks, (unsigned)((k + KC - 1) / KC));
-    hmatrix_product_kernel<KC><<<grid, kThreads, smem, stream>>>(
-        table, n_buckets, x, lx, y, ly, k, swapped, symmetric, max_dim);
-    return cudaGetLastError();
+__global__ void __launch_bounds__(kThreads)
+hmatrix_product_kernel(const Bucket* __restrict__ table, int n_buckets,
+                       const float* __restrict__ x, long long lx,
+                       float* __restrict__ y, long long ly, int k,
+                       int swapped, int symmetric, int max_dim) {
+    extern __shared__ float4 smem4[];
+    float* xs = reinterpret_cast<float*>(smem4);
+    float* ws = xs + (long long)(max_dim + 4) * KC;
+    const long long blk = blockIdx.x;
+    const Bucket B = table[find_bucket(table, n_buckets, blk)];
+    block_product<KC>(B, blk - B.first, x, lx, y, ly, k, swapped, symmetric, xs, ws);
 }
+
+// 'per_bucket' (K1-pb): one launch per bucket `row`, one CTA per (block of
+// that bucket, column group); no bucket search.  max_dim is the bucket's.
+template <int KC>
+__global__ void __launch_bounds__(kThreads)
+hmatrix_product_bucket_kernel(const Bucket* __restrict__ table, int row,
+                              const float* __restrict__ x, long long lx,
+                              float* __restrict__ y, long long ly, int k,
+                              int swapped, int symmetric, int max_dim) {
+    extern __shared__ float4 smem4[];
+    float* xs = reinterpret_cast<float*>(smem4);
+    float* ws = xs + (long long)(max_dim + 4) * KC;
+    const Bucket B = table[row];
+    block_product<KC>(B, blockIdx.x, x, lx, y, ly, k, swapped, symmetric, xs, ws);
+}
+
+// 'seq' (K1-seq): one launch, a persistent grid that walks every block in
+// bucket order with a grid-stride loop.
+template <int KC>
+__global__ void __launch_bounds__(kThreads)
+hmatrix_product_seq_kernel(const Bucket* __restrict__ table, int n_buckets,
+                           long long n_blocks, const float* __restrict__ x,
+                           long long lx, float* __restrict__ y, long long ly,
+                           int k, int swapped, int symmetric, int max_dim) {
+    extern __shared__ float4 smem4[];
+    float* xs = reinterpret_cast<float*>(smem4);
+    float* ws = xs + (long long)(max_dim + 4) * KC;
+    for (long long blk = blockIdx.x; blk < n_blocks; blk += gridDim.x) {
+        const Bucket B = table[find_bucket(table, n_buckets, blk)];
+        block_product<KC>(B, blk - B.first, x, lx, y, ly, k, swapped, symmetric, xs, ws);
+        __syncthreads();  // the next block restages xs and ws
+    }
+}
+
+size_t smem_bytes(int KC, long long max_dim, long long max_r) {
+    return (size_t)(max_dim + 4 + max_r) * KC * sizeof(float);
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+    if (smem <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem);
+}
+
+// Resident CTAs of the whole card for (kernel instance KC, smem): the
+// persistent grid of 'seq', computed once per (device, KC, smem) and kept.
+struct GridEntry { int device, kc; size_t smem; int grid; };
+GridEntry g_grids[64];
+int g_n_grids = 0;
+
+template <typename Kernel>
+cudaError_t persistent_grid(Kernel kernel, int KC, size_t smem, int* grid) {
+    int device = 0;
+    cudaError_t e = cudaGetDevice(&device);
+    if (e != cudaSuccess) return e;
+    for (int q = 0; q < g_n_grids; ++q) {
+        if (g_grids[q].device == device && g_grids[q].kc == KC && g_grids[q].smem == smem) {
+            *grid = g_grids[q].grid;
+            return cudaSuccess;
+        }
+    }
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (e != cudaSuccess) return e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+    if (e != cudaSuccess) return e;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    *grid = sms * per_sm;
+    if (g_n_grids < 64) g_grids[g_n_grids++] = GridEntry{device, KC, smem, *grid};
+    return cudaSuccess;
+}
+
+// Calls f with the column-group width KC (a std::integral_constant) that a
+// product with k right-hand sides uses.
+template <typename F>
+cudaError_t with_kc(int k, F f) {
+    if (k >= 8) return f(std::integral_constant<int, 8>{});
+    if (k >= 3) return f(std::integral_constant<int, 4>{});
+    if (k == 2) return f(std::integral_constant<int, 2>{});
+    return f(std::integral_constant<int, 1>{});
+}
+
+unsigned col_groups(int k, int KC) { return (unsigned)((k + KC - 1) / KC); }
 
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  `table` is a device int64 array
 // of n_buckets rows of 10 fields (struct Bucket), sorted by `first`, no
-// empty bucket; y (ly, k) must be zeroed by the caller.  Returns the
-// cudaError_t of the launch (0 on success).
+// empty bucket; y (ly, k) must be zeroed by the caller.  Each returns the
+// cudaError_t of its launches (0 on success).
+
+// 'fused': one launch over every bucket.
 extern "C" int hm_k1_launch(const void* table, int n_buckets, long long n_blocks,
                             const float* x, long long lx, float* y, long long ly,
                             int k, int swapped, int symmetric, int max_dim,
                             int max_r, void* stream) {
     if (n_blocks == 0 || k == 0) return 0;
     const Bucket* t = static_cast<const Bucket*>(table);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (k >= 8) return launch<8>(t, n_buckets, n_blocks, x, lx, y, ly, k, swapped, symmetric, max_dim, max_r, s);
-    if (k >= 3) return launch<4>(t, n_buckets, n_blocks, x, lx, y, ly, k, swapped, symmetric, max_dim, max_r, s);
-    if (k == 2) return launch<2>(t, n_buckets, n_blocks, x, lx, y, ly, k, swapped, symmetric, max_dim, max_r, s);
-    return launch<1>(t, n_buckets, n_blocks, x, lx, y, ly, k, swapped, symmetric, max_dim, max_r, s);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    return with_kc(k, [&](auto kc) {
+        constexpr int KC = decltype(kc)::value;
+        const size_t smem = smem_bytes(KC, max_dim, max_r);
+        cudaError_t e = allow_smem(hmatrix_product_kernel<KC>, smem);
+        if (e != cudaSuccess) return e;
+        const dim3 grid((unsigned)n_blocks, col_groups(k, KC));
+        hmatrix_product_kernel<KC><<<grid, kThreads, smem, st>>>(
+            t, n_buckets, x, lx, y, ly, k, swapped, symmetric, max_dim);
+        return cudaGetLastError();
+    });
+}
+
+// 'per_bucket' (K1-pb): one launch per table row.  `host_rows` is the
+// host copy of the table (the same n_buckets rows), read for each row's
+// block count and dims; every launch adds into the same y.
+extern "C" int hm_k1_launch_per_bucket(const void* table, const void* host_rows,
+                                       int n_buckets, const float* x, long long lx,
+                                       float* y, long long ly, int k, int swapped,
+                                       int symmetric, void* stream) {
+    if (k == 0) return 0;
+    const Bucket* t = static_cast<const Bucket*>(table);
+    const Bucket* h = static_cast<const Bucket*>(host_rows);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    return with_kc(k, [&](auto kc) {
+        constexpr int KC = decltype(kc)::value;
+        for (int row = 0; row < n_buckets; ++row) {
+            const long long dim = h[row].pt > h[row].ps ? h[row].pt : h[row].ps;
+            const size_t smem = smem_bytes(KC, dim, h[row].r);
+            cudaError_t e = allow_smem(hmatrix_product_bucket_kernel<KC>, smem);
+            if (e != cudaSuccess) return e;
+            const dim3 grid((unsigned)h[row].nb, col_groups(k, KC));
+            hmatrix_product_bucket_kernel<KC><<<grid, kThreads, smem, st>>>(
+                t, row, x, lx, y, ly, k, swapped, symmetric, (int)dim);
+            e = cudaGetLastError();
+            if (e != cudaSuccess) return e;
+        }
+        return cudaSuccess;
+    });
+}
+
+// 'seq' (K1-seq): one launch of a persistent grid over every bucket.
+extern "C" int hm_k1_launch_seq(const void* table, int n_buckets, long long n_blocks,
+                                const float* x, long long lx, float* y, long long ly,
+                                int k, int swapped, int symmetric, int max_dim,
+                                int max_r, void* stream) {
+    if (n_blocks == 0 || k == 0) return 0;
+    const Bucket* t = static_cast<const Bucket*>(table);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    return with_kc(k, [&](auto kc) {
+        constexpr int KC = decltype(kc)::value;
+        const size_t smem = smem_bytes(KC, max_dim, max_r);
+        cudaError_t e = allow_smem(hmatrix_product_seq_kernel<KC>, smem);
+        if (e != cudaSuccess) return e;
+        int resident = 0;
+        e = persistent_grid(hmatrix_product_seq_kernel<KC>, KC, smem, &resident);
+        if (e != cudaSuccess) return e;
+        const long long gx = n_blocks < resident ? n_blocks : resident;
+        const dim3 grid((unsigned)gx, col_groups(k, KC));
+        hmatrix_product_seq_kernel<KC><<<grid, kThreads, smem, st>>>(
+            t, n_buckets, n_blocks, x, lx, y, ly, k, swapped, symmetric, max_dim);
+        return cudaGetLastError();
+    });
 }
 
 extern "C" const char* hm_error_string(int code) {

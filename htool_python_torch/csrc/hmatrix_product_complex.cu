@@ -35,7 +35,12 @@
 // (K1: 128) to keep loads in flight.  Results go out with float2 atomicAdd
 // (one complex value), or float4 (two) where the row segment is aligned;
 // the order of those adds varies from run to run.  Faster designs (row
-// ownership, TMA staging, a persistent grid) are later work.
+// ownership, TMA staging) are later work.
+//
+// Launch structures: K1's three ('fused', 'per_bucket' = K2-pb, 'seq' =
+// K2-seq; see hmatrix_product.cu), over one block body.  The reference ran
+// complex symmetric storage under 'seq' through its fused kernel
+// (pallas_matvec.py:598-605); here 'seq' covers every storage case.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libhmatrix_product_complex.so
@@ -43,6 +48,8 @@
 // (done at first use by htool_python_torch/ops/cuda_build.py).
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -203,26 +210,25 @@ __device__ void col_combine(const float2* __restrict__ A, int n_rows,
     }
 }
 
-template <int KC>
-__global__ void __launch_bounds__(kThreads)
-hmatrix_product_complex_kernel(const Bucket* __restrict__ table, int n_buckets,
-                               const float2* __restrict__ x, long long lx,
-                               float2* __restrict__ y, long long ly, int k,
-                               int swapped, int symmetric, int conj_fwd,
-                               int conj_tr, int max_ldx) {
-    extern __shared__ float4 smem4[];
-    float2* xs = reinterpret_cast<float2*>(smem4);  // (KC, max_ldx)
-    float2* ws = xs + (long long)max_ldx * KC;      // (max_r, KC)
-
-    // the bucket holding this block: last table row with first <= blk
-    const long long blk = blockIdx.x;
+// The bucket holding grid block `blk`: the last table row with first <= blk.
+__device__ __forceinline__ int find_bucket(const Bucket* __restrict__ table,
+                                           int n_buckets, long long blk) {
     int lo = 0, hi = n_buckets - 1;
     while (lo < hi) {
         const int mid = (lo + hi + 1) >> 1;
         if (table[mid].first <= blk) lo = mid; else hi = mid - 1;
     }
-    const Bucket B = table[lo];
-    const long long i = blk - B.first;
+    return lo;
+}
+
+// The product of block i of bucket B for the column group c0 = blockIdx.y
+// * KC, with shared memory xs (KC, max_ldx) followed by ws (max_r, KC).
+// All three launch structures below run this body.
+template <int KC>
+__device__ __forceinline__ void block_product(
+        const Bucket& B, long long i, const float2* __restrict__ x, long long lx,
+        float2* __restrict__ y, long long ly, int k, int swapped, int symmetric,
+        int conj_fwd, int conj_tr, float2* xs, float2* ws) {
     const int pt = (int)B.pt, ps = (int)B.ps, r = (int)B.r;
     const int c0 = blockIdx.y * KC;
     const int kc = min(KC, k - c0);
@@ -269,25 +275,111 @@ hmatrix_product_complex_kernel(const Bucket* __restrict__ table, int n_buckets,
     }
 }
 
+// 'fused': one CTA per (block, column group), every bucket in one launch.
 template <int KC>
-cudaError_t launch(const Bucket* table, int n_buckets, long long n_blocks,
-                   const float2* x, long long lx, float2* y, long long ly,
-                   int k, int swapped, int symmetric, int conj_fwd,
-                   int conj_tr, int max_dim, int max_r, cudaStream_t stream) {
-    const int max_ldx = x_ld(max_dim, KC);  // x_ld grows with n
-    const size_t smem = ((size_t)max_ldx + max_r) * KC * sizeof(float2);
-    if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            hmatrix_product_complex_kernel<KC>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return e;
-    }
-    const dim3 grid((unsigned)n_blocks, (unsigned)((k + KC - 1) / KC));
-    hmatrix_product_complex_kernel<KC><<<grid, kThreads, smem, stream>>>(
-        table, n_buckets, x, lx, y, ly, k, swapped, symmetric, conj_fwd,
-        conj_tr, max_ldx);
-    return cudaGetLastError();
+__global__ void __launch_bounds__(kThreads)
+hmatrix_product_complex_kernel(const Bucket* __restrict__ table, int n_buckets,
+                               const float2* __restrict__ x, long long lx,
+                               float2* __restrict__ y, long long ly, int k,
+                               int swapped, int symmetric, int conj_fwd,
+                               int conj_tr, int max_ldx) {
+    extern __shared__ float4 smem4[];
+    float2* xs = reinterpret_cast<float2*>(smem4);  // (KC, max_ldx)
+    float2* ws = xs + (long long)max_ldx * KC;      // (max_r, KC)
+    const long long blk = blockIdx.x;
+    const Bucket B = table[find_bucket(table, n_buckets, blk)];
+    block_product<KC>(B, blk - B.first, x, lx, y, ly, k, swapped, symmetric,
+                      conj_fwd, conj_tr, xs, ws);
 }
+
+// 'per_bucket' (K2-pb): one launch per bucket `row`, one CTA per (block of
+// that bucket, column group); no bucket search.  max_ldx is the bucket's.
+template <int KC>
+__global__ void __launch_bounds__(kThreads)
+hmatrix_product_complex_bucket_kernel(const Bucket* __restrict__ table, int row,
+                                      const float2* __restrict__ x, long long lx,
+                                      float2* __restrict__ y, long long ly, int k,
+                                      int swapped, int symmetric, int conj_fwd,
+                                      int conj_tr, int max_ldx) {
+    extern __shared__ float4 smem4[];
+    float2* xs = reinterpret_cast<float2*>(smem4);
+    float2* ws = xs + (long long)max_ldx * KC;
+    const Bucket B = table[row];
+    block_product<KC>(B, blockIdx.x, x, lx, y, ly, k, swapped, symmetric,
+                      conj_fwd, conj_tr, xs, ws);
+}
+
+// 'seq' (K2-seq): one launch, a persistent grid that walks every block in
+// bucket order with a grid-stride loop.  Every storage case, symmetric
+// included.
+template <int KC>
+__global__ void __launch_bounds__(kThreads)
+hmatrix_product_complex_seq_kernel(const Bucket* __restrict__ table, int n_buckets,
+                                   long long n_blocks, const float2* __restrict__ x,
+                                   long long lx, float2* __restrict__ y, long long ly,
+                                   int k, int swapped, int symmetric, int conj_fwd,
+                                   int conj_tr, int max_ldx) {
+    extern __shared__ float4 smem4[];
+    float2* xs = reinterpret_cast<float2*>(smem4);
+    float2* ws = xs + (long long)max_ldx * KC;
+    for (long long blk = blockIdx.x; blk < n_blocks; blk += gridDim.x) {
+        const Bucket B = table[find_bucket(table, n_buckets, blk)];
+        block_product<KC>(B, blk - B.first, x, lx, y, ly, k, swapped, symmetric,
+                          conj_fwd, conj_tr, xs, ws);
+        __syncthreads();  // the next block restages xs and ws
+    }
+}
+
+size_t smem_bytes(int max_ldx, int KC, long long max_r) {
+    return ((size_t)max_ldx + max_r) * KC * sizeof(float2);
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+    if (smem <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem);
+}
+
+// Resident CTAs of the whole card for (kernel instance KC, smem): the
+// persistent grid of 'seq', computed once per (device, KC, smem) and kept.
+struct GridEntry { int device, kc; size_t smem; int grid; };
+GridEntry g_grids[64];
+int g_n_grids = 0;
+
+template <typename Kernel>
+cudaError_t persistent_grid(Kernel kernel, int KC, size_t smem, int* grid) {
+    int device = 0;
+    cudaError_t e = cudaGetDevice(&device);
+    if (e != cudaSuccess) return e;
+    for (int q = 0; q < g_n_grids; ++q) {
+        if (g_grids[q].device == device && g_grids[q].kc == KC && g_grids[q].smem == smem) {
+            *grid = g_grids[q].grid;
+            return cudaSuccess;
+        }
+    }
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (e != cudaSuccess) return e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+    if (e != cudaSuccess) return e;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    *grid = sms * per_sm;
+    if (g_n_grids < 64) g_grids[g_n_grids++] = GridEntry{device, KC, smem, *grid};
+    return cudaSuccess;
+}
+
+// Calls f with the column-group width KC (a std::integral_constant) that a
+// product with k right-hand sides uses.
+template <typename F>
+cudaError_t with_kc(int k, F f) {
+    if (k >= 8) return f(std::integral_constant<int, 8>{});
+    if (k >= 3) return f(std::integral_constant<int, 4>{});
+    if (k == 2) return f(std::integral_constant<int, 2>{});
+    return f(std::integral_constant<int, 1>{});
+}
+
+unsigned col_groups(int k, int KC) { return (unsigned)((k + KC - 1) / KC); }
 
 }  // namespace
 
@@ -296,8 +388,10 @@ cudaError_t launch(const Bucket* table, int n_buckets, long long n_blocks,
 // empty bucket, pointing at complex64 tensors; x (lx, k) and y (ly, k) are
 // complex64 (interleaved re, im); y must be zeroed by the caller.
 // conj_fwd / conj_tr conjugate the operator in the x[s:] -> y[t:] and the
-// x[t:] -> y[s:] direction.  Returns the cudaError_t of the launch (0 on
-// success).
+// x[t:] -> y[s:] direction.  Each returns the cudaError_t of its launches
+// (0 on success).
+
+// 'fused': one launch over every bucket.
 extern "C" int hm_k2_launch(const void* table, int n_buckets, long long n_blocks,
                             const void* x, long long lx, void* y, long long ly,
                             int k, int swapped, int symmetric, int conj_fwd,
@@ -306,11 +400,80 @@ extern "C" int hm_k2_launch(const void* table, int n_buckets, long long n_blocks
     const Bucket* t = static_cast<const Bucket*>(table);
     const float2* xc = static_cast<const float2*>(x);
     float2* yc = static_cast<float2*>(y);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (k >= 8) return launch<8>(t, n_buckets, n_blocks, xc, lx, yc, ly, k, swapped, symmetric, conj_fwd, conj_tr, max_dim, max_r, s);
-    if (k >= 3) return launch<4>(t, n_buckets, n_blocks, xc, lx, yc, ly, k, swapped, symmetric, conj_fwd, conj_tr, max_dim, max_r, s);
-    if (k == 2) return launch<2>(t, n_buckets, n_blocks, xc, lx, yc, ly, k, swapped, symmetric, conj_fwd, conj_tr, max_dim, max_r, s);
-    return launch<1>(t, n_buckets, n_blocks, xc, lx, yc, ly, k, swapped, symmetric, conj_fwd, conj_tr, max_dim, max_r, s);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    return with_kc(k, [&](auto kc) {
+        constexpr int KC = decltype(kc)::value;
+        const int max_ldx = x_ld(max_dim, KC);  // x_ld grows with n
+        const size_t smem = smem_bytes(max_ldx, KC, max_r);
+        cudaError_t e = allow_smem(hmatrix_product_complex_kernel<KC>, smem);
+        if (e != cudaSuccess) return e;
+        const dim3 grid((unsigned)n_blocks, col_groups(k, KC));
+        hmatrix_product_complex_kernel<KC><<<grid, kThreads, smem, st>>>(
+            t, n_buckets, xc, lx, yc, ly, k, swapped, symmetric, conj_fwd,
+            conj_tr, max_ldx);
+        return cudaGetLastError();
+    });
+}
+
+// 'per_bucket' (K2-pb): one launch per table row.  `host_rows` is the
+// host copy of the table (the same n_buckets rows), read for each row's
+// block count and dims; every launch adds into the same y.
+extern "C" int hm_k2_launch_per_bucket(const void* table, const void* host_rows,
+                                       int n_buckets, const void* x, long long lx,
+                                       void* y, long long ly, int k, int swapped,
+                                       int symmetric, int conj_fwd, int conj_tr,
+                                       void* stream) {
+    if (k == 0) return 0;
+    const Bucket* t = static_cast<const Bucket*>(table);
+    const Bucket* h = static_cast<const Bucket*>(host_rows);
+    const float2* xc = static_cast<const float2*>(x);
+    float2* yc = static_cast<float2*>(y);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    return with_kc(k, [&](auto kc) {
+        constexpr int KC = decltype(kc)::value;
+        for (int row = 0; row < n_buckets; ++row) {
+            const long long dim = h[row].pt > h[row].ps ? h[row].pt : h[row].ps;
+            const int max_ldx = x_ld((int)dim, KC);
+            const size_t smem = smem_bytes(max_ldx, KC, h[row].r);
+            cudaError_t e = allow_smem(hmatrix_product_complex_bucket_kernel<KC>, smem);
+            if (e != cudaSuccess) return e;
+            const dim3 grid((unsigned)h[row].nb, col_groups(k, KC));
+            hmatrix_product_complex_bucket_kernel<KC><<<grid, kThreads, smem, st>>>(
+                t, row, xc, lx, yc, ly, k, swapped, symmetric, conj_fwd, conj_tr,
+                max_ldx);
+            e = cudaGetLastError();
+            if (e != cudaSuccess) return e;
+        }
+        return cudaSuccess;
+    });
+}
+
+// 'seq' (K2-seq): one launch of a persistent grid over every bucket.
+extern "C" int hm_k2_launch_seq(const void* table, int n_buckets, long long n_blocks,
+                                const void* x, long long lx, void* y, long long ly,
+                                int k, int swapped, int symmetric, int conj_fwd,
+                                int conj_tr, int max_dim, int max_r, void* stream) {
+    if (n_blocks == 0 || k == 0) return 0;
+    const Bucket* t = static_cast<const Bucket*>(table);
+    const float2* xc = static_cast<const float2*>(x);
+    float2* yc = static_cast<float2*>(y);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    return with_kc(k, [&](auto kc) {
+        constexpr int KC = decltype(kc)::value;
+        const int max_ldx = x_ld(max_dim, KC);
+        const size_t smem = smem_bytes(max_ldx, KC, max_r);
+        cudaError_t e = allow_smem(hmatrix_product_complex_seq_kernel<KC>, smem);
+        if (e != cudaSuccess) return e;
+        int resident = 0;
+        e = persistent_grid(hmatrix_product_complex_seq_kernel<KC>, KC, smem, &resident);
+        if (e != cudaSuccess) return e;
+        const long long gx = n_blocks < resident ? n_blocks : resident;
+        const dim3 grid((unsigned)gx, col_groups(k, KC));
+        hmatrix_product_complex_seq_kernel<KC><<<grid, kThreads, smem, st>>>(
+            t, n_buckets, n_blocks, xc, lx, yc, ly, k, swapped, symmetric,
+            conj_fwd, conj_tr, max_ldx);
+        return cudaGetLastError();
+    });
 }
 
 extern "C" const char* hm_k2_error_string(int code) {

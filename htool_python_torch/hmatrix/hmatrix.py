@@ -26,6 +26,31 @@ _FACTORIZATION_SLICE = ("H-matrix factorization (lu_*/cholesky_*) is not "
                         "factorization, a later slice)")
 
 
+def reduce_hmatrix_information(hmatrices) -> dict:
+    """The reference's reduced info dict over H-matrices held in one process
+    (the block rows of a distributed operator): sums for sizes, blocks and
+    storage, min / max / mean over ranks."""
+    a = np.stack([h._information_tuple() for h in hmatrices])
+    rows = int(a[:, 0].sum())
+    cols = int(a[0, 1])  # every piece spans the full source width
+    stored = int(a[:, 4].sum())
+    rank_count = int(a[:, 9].sum())
+    total = max(rows * cols, 1)
+    return {
+        "Number_of_rows": str(rows),
+        "Number_of_columns": str(cols),
+        "Number_of_dense_blocks": str(int(a[:, 2].sum())),
+        "Number_of_low_rank_blocks": str(int(a[:, 3].sum())),
+        "Compression_ratio": str(total / max(stored, 1)),
+        "Space_saving": str(1.0 - stored / total),
+        "Storage_size_in_bytes": str(int(a[:, 5].sum())),
+        "Min_rank": str(int(a[:, 6].min()) if rank_count else 0),
+        "Max_rank": str(int(a[:, 7].max())),
+        "Mean_rank": str(float(a[:, 8].sum()) / rank_count
+                         if rank_count else 0.0),
+    }
+
+
 class HMatrix:
     """Compressed operator over (target_cluster x source_cluster)."""
 
@@ -219,45 +244,71 @@ class HMatrix:
 
     # ------------------------------------------------------------------
     # densification
-    def to_dense(self) -> np.ndarray:
-        """Dense matrix in the cluster-internal numbering of this block."""
+    def to_dense_tensor(self) -> torch.Tensor:
+        """Dense matrix in the cluster-internal numbering of this block, as
+        a tensor on the H-matrix's device: each bucket's blocks are formed
+        in one batched op and added into place with one index_add_ (their
+        padding is masked, so padded entries add nothing)."""
         nt, ns = self.shape
         tb = self.plan.target_offset if self.plan.t_off_absolute else 0
-        out = np.zeros((nt, ns), dtype=torch.empty((), dtype=self.dtype)
-                       .numpy().dtype)
+        buckets = self.plan.dense_buckets + self.plan.lowrank_buckets
+        pad = max([max(b.pt, b.ps) for b in buckets] + [1])
+        rows, cols = max(nt, ns) + pad, max(nt, ns) + pad
+        out = torch.zeros(rows * cols, dtype=self.dtype, device=self.device)
+        data = self._assembly_data()
 
-        def put(b, i, blk):
-            out[b.t_off[i] - tb:b.t_off[i] - tb + b.t_sz[i],
-                b.s_off[i]:b.s_off[i] + b.s_sz[i]] = blk
-            if b.mirror[i]:
-                m = blk.conj().T if self.symmetry == "H" else blk.T
-                out[b.s_off[i] - tb:b.s_off[i] - tb + b.s_sz[i],
-                    b.t_off[i]:b.t_off[i] + b.t_sz[i]] = m
+        def put(t0, s0, t_sz, s_sz, blk):
+            """blk (nb, p, q) at rows t0 + [0, p), cols s0 + [0, q), masked
+            to (t_sz, s_sz)."""
+            p, q = blk.shape[1], blk.shape[2]
+            dev = self.device
+            ar_p = torch.arange(p, device=dev)
+            ar_q = torch.arange(q, device=dev)
+            t0, s0, t_sz, s_sz = (torch.as_tensor(np.asarray(v, np.int64),
+                                                  device=dev)
+                                  for v in (t0, s0, t_sz, s_sz))
+            mask = ((ar_p[None, :, None] < t_sz[:, None, None])
+                    & (ar_q[None, None, :] < s_sz[:, None, None]))
+            lin = ((t0[:, None, None] + ar_p[None, :, None]) * cols
+                   + s0[:, None, None] + ar_q[None, None, :])
+            out.index_add_(0, lin[mask], blk[mask])
 
-        for (D, *_), b in zip(self._data["dense"], self.plan.dense_buckets):
-            Dh = D.cpu().numpy()
-            for i in range(b.nb):
-                put(b, i, Dh[i, :b.t_sz[i], :b.s_sz[i]])
-        for (Ut, V, *_), b in zip(self._data["lr"], self.plan.lowrank_buckets):
-            Uh, Vh = Ut.cpu().numpy(), V.cpu().numpy()
-            for i in range(b.nb):
-                put(b, i, Uh[i, :, :b.t_sz[i]].T @ Vh[i, :, :b.s_sz[i]])
-        return out
+        blocks = ([(D, b) for (D, *_), b in zip(data["dense"],
+                                                self.plan.dense_buckets)]
+                  + [(torch.einsum("nri,nrj->nij", Ut, V), b)
+                     for (Ut, V, *_), b in zip(data["lr"],
+                                               self.plan.lowrank_buckets)])
+        for blk, b in blocks:
+            put(b.t_off - tb, b.s_off, b.t_sz, b.s_sz, blk)
+            m = np.flatnonzero(b.mirror)
+            if len(m):
+                mt = blk[torch.as_tensor(m, device=self.device)].transpose(1, 2)
+                if self.symmetry == "H":
+                    mt = mt.conj()
+                put(b.s_off[m] - tb, b.t_off[m], b.s_sz[m], b.t_sz[m], mt)
+        return out.view(rows, cols)[:nt, :ns]
 
-    def to_dense_in_user_numbering(self) -> np.ndarray:
-        """Dense matrix with rows/cols in user numbering.  For sub-blocks the
-        rows/cols are this block's points ordered by ascending user index."""
-        a = self.to_dense()
+    def to_dense(self) -> np.ndarray:
+        """Dense matrix in the cluster-internal numbering of this block."""
+        return self.to_dense_tensor().cpu().numpy()
+
+    def to_dense_in_user_numbering_tensor(self) -> torch.Tensor:
+        """Dense matrix with rows/cols in user numbering, on the device.
+        For sub-blocks the rows/cols are this block's points ordered by
+        ascending user index."""
         p = self.plan
         perm_t = p.target_root.get_permutation()[
             p.target_offset:p.target_offset + p.nb_rows]
         perm_s = p.source_root.get_permutation()[
             p.source_offset:p.source_offset + p.nb_cols]
-        if self.is_root():
-            out = np.empty_like(a)
-            out[np.ix_(perm_t, perm_s)] = a
-            return out
-        return a[np.ix_(np.argsort(perm_t), np.argsort(perm_s))]
+        # root: out[perm_t[i], perm_s[j]] = a[i, j]; a sub-block sorts its
+        # points by user index: both read a at the inverse order
+        inv_t, inv_s = (torch.as_tensor(np.argsort(q), device=self.device)
+                        for q in (perm_t, perm_s))
+        return self.to_dense_tensor()[inv_t][:, inv_s]
+
+    def to_dense_in_user_numbering(self) -> np.ndarray:
+        return self.to_dense_in_user_numbering_tensor().cpu().numpy()
 
     # ------------------------------------------------------------------
     # factorizations: a later slice
@@ -334,6 +385,22 @@ class HMatrix:
         ranks_all = (np.concatenate(ranks_all) if ranks_all
                      else np.zeros(0, np.int64))
         return dense_entries, lr_entries, ranks_all
+
+    def _information_tuple(self):
+        """Numeric stats reduced by reduce_hmatrix_information: (rows, cols,
+        dense_blocks, lr_blocks, stored_entries, bytes, min_rank, max_rank,
+        rank_sum, rank_count)."""
+        nt, ns = self.shape
+        dense_e, lr_e, ranks = self._storage_counts()
+        stored = dense_e + lr_e
+        itemsize = torch.empty((), dtype=self.dtype).element_size()
+        return np.array([
+            nt, ns, self.plan.nb_dense_blocks(), self.plan.nb_lowrank_blocks(),
+            stored, stored * itemsize,
+            int(ranks.min()) if len(ranks) else np.iinfo(np.int64).max,
+            int(ranks.max()) if len(ranks) else 0,
+            int(ranks.sum()) if len(ranks) else 0, len(ranks),
+        ], dtype=np.int64)
 
     def get_local_information(self) -> dict:
         nt, ns = self.shape

@@ -7,11 +7,28 @@ the counterpart of `apply_hmatrix_pallas_complex` there; source
 htool_python_torch/csrc/hmatrix_product_complex.cu.  Both are built by
 ops/cuda_build.py and called through ctypes.
 
+Each kernel has three launch structures, chosen by the config knob
+`matvec_kernel_mode` as in the reference (htool_python_tpu/config.py
+`matvec_kernel_mode`, pallas_matvec.py `_kernel_mode`):
+
+  * 'fused' (the default): one launch covers every bucket;
+  * 'per_bucket' (K1-pb / K2-pb, the reference's `_launch_per_bucket`):
+    one launch per bucket, all adding into the one zeroed y;
+  * 'seq' (K1-seq / K2-seq, the reference's `_launch_seq`): one launch of
+    a persistent grid that walks the buckets in order.
+
+Only this wrapper reads the knob.  On a CUDA tensor the chosen structure
+launches (never another one); the plain version has no launch structure,
+so on the CPU every mode runs it.  LAUNCH_COUNTS counts each structure
+under its own name (`hmatrix_product`, `hmatrix_product/per_bucket`,
+`hmatrix_product/seq`, and the same for `hmatrix_product_complex`); a
+per-bucket product counts one launch per non-empty bucket.
+
 Contract (the same as `apply_hmatrix_padded`, their plain version in
 ops/matvec.py): for bucket data {'dense': [(D, t_off, s_off, mirror)],
 'lr': [(Ut, V, t_off, s_off, mirror)]} and x_pad (L, k), return y_pad
 (ny_pad, k) = H^(trans) x_pad for trans in 'N', 'T', 'C' and storage sym in
-'N', 'S', 'H'.  Any k.  One launch covers every bucket.  x_pad and y_pad
+'N', 'S', 'H'.  Any k.  x_pad and y_pad
 must both hold every block segment (BucketTable.extent rows), or the call
 raises.  The data's dtype picks the kernel:
 
@@ -41,15 +58,27 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
+from ..config import get_config
 from .matvec import apply_hmatrix_padded
 
 KERNEL_NAME = "hmatrix_product"  # K1
 K2_NAME = "hmatrix_product_complex"
 
-# launches of each kernel, counted where the wrapper launches it
-LAUNCH_COUNTS = {KERNEL_NAME: 0, K2_NAME: 0}
+MODES = ("fused", "per_bucket", "seq")
+
+
+def launch_name(kernel: str, mode: str) -> str:
+    """The LAUNCH_COUNTS key of `kernel` launched in `mode`."""
+    return kernel if mode == "fused" else f"{kernel}/{mode}"
+
+
+# launches of each kernel and structure, counted where the wrapper
+# launches it
+LAUNCH_COUNTS = {launch_name(kern, mode): 0 for kern in (KERNEL_NAME, K2_NAME)
+                 for mode in MODES}
 
 _TABLE_FIELDS = 10  # int64 fields per bucket row (struct Bucket in the .cu)
 
@@ -65,22 +94,33 @@ def reset_launch_counts() -> None:
         LAUNCH_COUNTS[name] = 0
 
 
+def kernel_mode() -> str:
+    """The configured launch structure; raises on an unknown one."""
+    mode = get_config().matvec_kernel_mode
+    if mode not in MODES:
+        raise ValueError(f"matvec_kernel_mode must be one of {MODES}, got "
+                         f"{mode!r}")
+    return mode
+
+
 def _library(name):
     from .cuda_build import load
 
     lib = load(name)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    if name == KERNEL_NAME:
-        lib.hm_k1_launch.argtypes = [p, i, ll, p, ll, p, ll, i, i, i, i, i, p]
-        lib.hm_k1_launch.restype = i
-        lib.hm_error_string.argtypes = [i]
-        lib.hm_error_string.restype = ctypes.c_char_p
-    else:
-        lib.hm_k2_launch.argtypes = [p, i, ll, p, ll, p, ll, i, i, i, i, i,
-                                     i, i, p]
-        lib.hm_k2_launch.restype = i
-        lib.hm_k2_error_string.argtypes = [i]
-        lib.hm_k2_error_string.restype = ctypes.c_char_p
+    pre = "hm_k1" if name == KERNEL_NAME else "hm_k2"
+    conj = [] if name == KERNEL_NAME else [i, i]  # conj_fwd, conj_tr
+    whole = [p, i, ll, p, ll, p, ll, i, i, i, *conj, i, i, p]
+    for suffix, argtypes in (
+            ("launch", whole), ("launch_seq", whole),
+            ("launch_per_bucket", [p, p, i, p, ll, p, ll, i, i, i, *conj,
+                                   p])):
+        fn = getattr(lib, f"{pre}_{suffix}")
+        fn.argtypes = argtypes
+        fn.restype = i
+    err = lib.hm_error_string if name == KERNEL_NAME else lib.hm_k2_error_string
+    err.argtypes = [i]
+    err.restype = ctypes.c_char_p
     return lib
 
 
@@ -179,7 +219,9 @@ class BucketTable:
     on every call, since the kernels themselves skip rows past the end of
     y and read zeros past the end of x.  On CUDA the table also holds the
     device table of bucket descriptors (struct Bucket in the .cu files),
-    built after every operand was checked.  It names the data's tensors by
+    built after every operand was checked, and its host copy `host_rows`,
+    which a per-bucket product reads for each launch's block count and
+    dims (no device read).  It names the data's tensors by
     pointer: it stays valid while the data's containers and tensors do
     (HMatrix builds one at its first product and drops it on copy and
     whenever its buckets are replaced).
@@ -200,8 +242,10 @@ class BucketTable:
                 rows, self.n_blocks, self.max_dim, self.max_r = _bucket_rows(
                     data, device, self.dtype)
                 self.n_buckets = len(rows)
-                self.table = torch.tensor(rows, dtype=torch.int64).reshape(
-                    -1, _TABLE_FIELDS).to(device)
+                self.host_rows = np.ascontiguousarray(
+                    np.asarray(rows, dtype=np.int64).reshape(-1,
+                                                             _TABLE_FIELDS))
+                self.table = torch.from_numpy(self.host_rows).to(device)
 
 
 def _conj_flags(trans: str, sym: str):
@@ -217,28 +261,34 @@ def _conj_flags(trans: str, sym: str):
     return conj_mirror, conj_main
 
 
-def _launch(name, table, x, y, trans, sym):
-    """One launch of kernel `name` over `table`, x (L, k) into the zeroed
-    y (ny, k); x and y hold the kernel's dtype."""
+def _launch(name, mode, table, x, y, trans, sym):
+    """Kernel `name` in launch structure `mode` over `table`, x (L, k) into
+    the zeroed y (ny, k); x and y hold the kernel's dtype."""
     lib = _library(name)
     device = x.device
     L, k = x.shape
     stream = torch.cuda.current_stream(device).cuda_stream
-    args = (table.table.data_ptr(), table.n_buckets, table.n_blocks,
-            x.data_ptr(), L, y.data_ptr(), y.shape[0], k, int(trans != "N"),
-            int(sym != "N"))
+    pre, err = (("hm_k1", lib.hm_error_string) if name == KERNEL_NAME
+                else ("hm_k2", lib.hm_k2_error_string))
+    conj = ([] if name == KERNEL_NAME
+            else [int(c) for c in _conj_flags(trans, sym)])
+    io = (x.data_ptr(), L, y.data_ptr(), y.shape[0], k, int(trans != "N"),
+          int(sym != "N"), *conj)
     with torch.cuda.device(device):
-        if name == KERNEL_NAME:
-            rc = lib.hm_k1_launch(*args, table.max_dim, table.max_r, stream)
-            err = lib.hm_error_string
+        if mode == "per_bucket":
+            rc = getattr(lib, pre + "_launch_per_bucket")(
+                table.table.data_ptr(), table.host_rows.ctypes.data,
+                table.n_buckets, *io, stream)
         else:
-            rc = lib.hm_k2_launch(*args, *map(int, _conj_flags(trans, sym)),
-                                  table.max_dim, table.max_r, stream)
-            err = lib.hm_k2_error_string
+            fn = getattr(lib, pre + ("_launch" if mode == "fused"
+                                     else "_launch_seq"))
+            rc = fn(table.table.data_ptr(), table.n_buckets, table.n_blocks,
+                    *io, table.max_dim, table.max_r, stream)
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
-                           f"({err(rc).decode()})")
-    LAUNCH_COUNTS[name] += 1
+        raise RuntimeError(f"{launch_name(name, mode)} launch failed: CUDA "
+                           f"error {rc} ({err(rc).decode()})")
+    LAUNCH_COUNTS[launch_name(name, mode)] += (
+        table.n_buckets if mode == "per_bucket" else 1)
 
 
 def real_view_product(real_product, x_pad, ny_pad: int):
@@ -276,6 +326,7 @@ def apply_hmatrix_cuda(data, x_pad, ny_pad: int, trans: str, sym: str,
     if table.extent > min(L, ny_pad):
         raise ValueError(f"a block segment ends at row {table.extent}, "
                          f"past x ({L} rows) or y ({ny_pad} rows)")
+    mode = kernel_mode()
     if device.type == "cpu":
         return apply_hmatrix_padded(data, x_pad, ny_pad, trans, sym)
     _check_dtype(x_pad.dtype, "x_pad")
@@ -288,10 +339,10 @@ def apply_hmatrix_cuda(data, x_pad, ny_pad: int, trans: str, sym: str,
     if table.dtype == torch.float32 and dtype == torch.complex64:
         _check_operand(x_pad, "x_pad", device, 2, torch.complex64)
         return real_view_product(
-            lambda xr, yr: _launch(name, table, xr, yr, trans, sym),
+            lambda xr, yr: _launch(name, mode, table, xr, yr, trans, sym),
             x_pad, ny_pad)
     x_pad = x_pad.to(dtype)
     _check_operand(x_pad, "x_pad", device, 2, dtype)
     y = torch.zeros((ny_pad, k), dtype=dtype, device=device)
-    _launch(name, table, x_pad, y, trans, sym)
+    _launch(name, mode, table, x_pad, y, trans, sym)
     return y

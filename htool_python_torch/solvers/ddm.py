@@ -1,0 +1,490 @@
+"""DDM solver: overlapping-Schwarz-preconditioned Krylov solves.
+
+Counterpart of htool_python_tpu/solvers/ddm.py: `DDMSolver`,
+`DDMSolverBuilder` (its three constructor variants) and
+`DDMSolverWithDenseLocalSolver`; one-level ASM / RAS over overlapping
+subdomains, `-hpddm_*` option strings, multi-RHS solves,
+`get_information`.
+
+The one-level preconditioner is the dense tier of the reference: every
+subdomain matrix is built on the device into one padded (P, mp, mp) batch
+(identity in the pad, so the factorization stays valid), factorized with
+one batched LU, and, with `config.ddm_dense_apply == 'invert'`, inverted
+once.  Each application is then gather -> one batched GEMM (or LU solve)
+-> weighted scatter-add into a dummy row n that catches the pad.
+
+Not ported yet, and raising NotImplementedError rather than densifying:
+the hierarchical (H-LU) tier for H-matrix subdomains above
+`config.ddm_local_dense_max` (ROADMAP item 13) and the GenEO coarse space
+`build_coarse_space` (ROADMAP item 16).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..clustering.cluster import ClusterTreeBuilder
+from ..config import as_torch_dtype, get_config, require_full_f32
+from ..hmatrix.assembly import _numpy_dtype
+from ..hmatrix.generator import VirtualGenerator
+from ..hmatrix.hmatrix import HMatrix
+from ..parallel.builders import PerPartition
+from ..parallel.distributed_operator import DistributedOperator
+from .krylov import cg, cg_device, compose_operators, gmres, gmres_device
+from .options import DEFAULTS, parse_hpddm_args
+
+_HIER_TIER = ("the hierarchical (H-LU) local solver for H-matrix subdomains "
+              "larger than config.ddm_local_dense_max is not ported yet "
+              "(ROADMAP queue 1, item 13: HODLR factorization); raise "
+              "ddm_local_dense_max to densify such subdomains explicitly")
+_GENEO = ("two-level GenEO coarse spaces (build_coarse_space, coarse.py) are "
+          "not ported yet (ROADMAP queue 1, item 16)")
+
+
+class _Subdomain:
+    """Per-partition overlapping subdomain description (user numbering).
+
+    `internal_ordering=True` marks subdomains whose dof order is the
+    H-matrix's cluster-internal order (block-Jacobi subdomains cut from the
+    partition diagonal) rather than the H-matrix's own user order."""
+
+    def __init__(self, ovr_to_global, cluster_to_ovr, neighbors, intersections,
+                 local_matrix=None, local_hmatrix=None,
+                 internal_ordering=False):
+        self.ovr_to_global = np.asarray(ovr_to_global, dtype=np.int64)
+        self.cluster_to_ovr = np.asarray(cluster_to_ovr, dtype=np.int64)
+        self.neighbors = np.asarray(neighbors, dtype=np.int64)
+        self.intersections = [np.asarray(i, dtype=np.int64)
+                              for i in (intersections or [])]
+        self.local_matrix = local_matrix  # dense (m, m): ndarray or tensor
+        self.local_hmatrix = local_hmatrix  # HMatrix over the subdomain
+        self.internal_ordering = internal_ordering
+
+    @property
+    def size(self) -> int:
+        return len(self.ovr_to_global)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        if self.local_matrix is not None:
+            return as_torch_dtype(self.local_matrix.dtype)
+        return self.local_hmatrix.dtype
+
+    def partition_of_unity(self) -> np.ndarray:
+        """Boolean POU: 1 on owned (cluster) dofs, 0 on ghost overlap."""
+        D = np.zeros(self.size)
+        D[self.cluster_to_ovr] = 1.0
+        return D
+
+    def dense_tensor(self, device) -> torch.Tensor:
+        """The (m, m) subdomain matrix on `device`."""
+        if self.local_matrix is not None:
+            return torch.as_tensor(self.local_matrix, device=device)
+        if self.internal_ordering:
+            return self.local_hmatrix.to_dense_tensor().to(device)
+        return self.local_hmatrix.to_dense_in_user_numbering_tensor().to(device)
+
+
+class DDMSolver:
+    """The reference's `Solver`: facto_one_level / build_coarse_space /
+    solve / set_hpddm_args / get_information."""
+
+    def __init__(self, distributed_operator: DistributedOperator,
+                 subdomains: list[_Subdomain]):
+        self.distributed_operator = distributed_operator
+        self.subdomains = subdomains
+        self.options = dict(DEFAULTS)
+        self._facto = None  # (kind, solver tensors, idx_pad, mp)
+        self._weights = None  # {'ras': (P, mp), 'asm': (P, mp)} tensors
+        self._info = {}
+
+    # ------------------------------------------------------------------
+    def set_hpddm_args(self, args: str) -> None:
+        parse_hpddm_args(args, into=self.options)
+
+    def facto_one_level(self) -> None:
+        """Factorize every subdomain's local matrix (the dense tier): the
+        padded (P, mp, mp) batch is built on the device, LU-factorized in
+        one batched call and, with ddm_dense_apply 'invert', inverted once
+        (then each application is one batched GEMM)."""
+        cfg = get_config()
+        if cfg.ddm_dense_apply not in ("invert", "solve"):
+            raise ValueError("ddm_dense_apply must be 'invert' or 'solve', "
+                             f"got {cfg.ddm_dense_apply!r}")
+        too_large = [p for p, s in enumerate(self.subdomains)
+                     if s.local_matrix is None
+                     and s.size > cfg.ddm_local_dense_max]
+        if too_large:
+            raise NotImplementedError(
+                f"subdomains {too_large} hold "
+                f"{[self.subdomains[p].size for p in too_large]} dofs: "
+                + _HIER_TIER)
+        device = self.distributed_operator.device
+        if device.type == "cuda":
+            require_full_f32()
+        n = self.distributed_operator.shape[1]
+        subs = self.subdomains
+        P = len(subs)
+        mp = max(s.size for s in subs)
+        dtype = subs[0].dtype
+        for s in subs[1:]:
+            dtype = torch.promote_types(dtype, s.dtype)
+        A = torch.zeros((P, mp, mp), dtype=dtype, device=device)
+        for i, s in enumerate(subs):
+            A[i, :s.size, :s.size] = s.dense_tensor(device)
+            pad = torch.arange(s.size, mp, device=device)
+            A[i, pad, pad] = 1.0  # identity pad
+        lu, piv = torch.linalg.lu_factor(A)
+        del A
+        idx_pad = torch.as_tensor(idx_pad_arr(subs, P, mp, n), device=device)
+        if cfg.ddm_dense_apply == "invert":
+            eye = torch.eye(mp, dtype=dtype, device=device).repeat(P, 1, 1)
+            self._facto = ("inv", (torch.linalg.lu_solve(lu, piv, eye),),
+                           idx_pad, mp)
+        else:
+            self._facto = ("lu", (lu, piv), idx_pad, mp)
+        W_ras = np.zeros((P, mp))
+        W_asm = np.zeros((P, mp))
+        for i, s in enumerate(subs):
+            W_ras[i, :s.size] = s.partition_of_unity()
+            W_asm[i, :s.size] = 1.0
+        rdtype = torch.empty((), dtype=dtype).real.dtype
+        self._weights = {
+            "ras": torch.as_tensor(W_ras, dtype=rdtype, device=device),
+            "asm": torch.as_tensor(W_asm, dtype=rdtype, device=device)}
+
+    # ------------------------------------------------------------------
+    def _one_level_device(self, r2d, method: str):
+        """ASM / RAS application: r2d (n, k) tensor in user numbering ->
+        (n, k).  Gather -> batched solve -> weighted scatter-add."""
+        kind, solver_data, idx_pad, _ = self._facto
+        n, k = r2d.shape
+        dtype = torch.promote_types(r2d.dtype, solver_data[0].dtype)
+        r_ext = torch.cat([r2d, torch.zeros((1, k), dtype=r2d.dtype,
+                                            device=r2d.device)]).to(dtype)
+        X = r_ext[idx_pad]  # (P, mp, k)
+        if kind == "inv":
+            Z = torch.bmm(solver_data[0], X)
+        else:
+            Z = torch.linalg.lu_solve(*solver_data, X)
+        Z = Z * self._weights[method][:, :, None]
+        out = torch.zeros((n + 1, k), dtype=dtype, device=r2d.device)
+        out.index_add_(0, idx_pad.reshape(-1), Z.reshape(-1, k))
+        return out[:n]
+
+    def _device_preconditioner(self):
+        """(n, k) -> (n, k) tensor preconditioner, or None."""
+        method = self.options.get("schwarz_method", "none")
+        coarse = self.options.get("schwarz_coarse_correction", "none")
+        if coarse != "none":
+            raise NotImplementedError(_GENEO)
+        if method not in ("asm", "ras") or self._facto is None:
+            return None
+        return lambda r2d: self._one_level_device(r2d, method).to(r2d.dtype)
+
+    def _preconditioner(self):
+        """Host wrapper (numpy in, numpy out) of the device preconditioner,
+        for the host-recurrence solvers."""
+        M = self._device_preconditioner()
+        if M is None:
+            return None
+        device = self.distributed_operator.device
+
+        def M_host(r):
+            r2 = r[:, None] if r.ndim == 1 else r
+            z = M(torch.as_tensor(np.ascontiguousarray(r2), device=device))
+            z = z.cpu().numpy()
+            return z[:, 0] if r.ndim == 1 else z
+
+        return M_host
+
+    # ------------------------------------------------------------------
+    def build_coarse_space(self, space_builders, operator_builder) -> None:
+        raise NotImplementedError(_GENEO)
+
+    # ------------------------------------------------------------------
+    def solve(self, x, b, hpddm_args: str = "") -> None:
+        """Solve A x = b in place into x (numpy), like the reference;
+        multi-RHS when x and b are 2-D.  Operators made of H-matrices and
+        dense blocks run the device solvers; custom Python local operators
+        run the host recurrences."""
+        if hpddm_args:
+            self.set_hpddm_args(hpddm_args)
+        opts = self.options
+        A = self.distributed_operator
+        method = opts.get("krylov_method", "gmres")
+        tol = float(opts.get("tol", 1e-6))
+        max_it = int(opts.get("max_it", 100))
+        restart = int(opts.get("gmres_restart", 40))
+        verbosity = int(opts.get("verbosity", 0) or 0)
+        variant = opts.get("variant", "right")
+        if variant in (True, None):
+            variant = "right"
+        if variant not in ("right", "left"):
+            raise ValueError(f"unknown -hpddm_variant {variant!r} "
+                             "(want 'right' or 'left')")
+        # CG is symmetrically preconditioned: variant is irrelevant there.
+        # Left-preconditioned GMRES solves M^{-1} A x = M^{-1} b with no
+        # inner preconditioner; tol then applies to the preconditioned
+        # residual (HPDDM semantics)
+        use_left = variant == "left" and method != "cg"
+
+        b_arr = np.asarray(b)
+        multi = b_arr.ndim == 2
+        estimates = None
+        if A.device_apply_available():
+            device = A.device
+            A_fn = A.build_device_apply()
+            M_fn = self._device_preconditioner()
+            sub_dtypes = ([_numpy_dtype(self._facto[1][0].dtype)]
+                          if self._facto is not None else [])
+            dtype = np.result_type(A._result_dtype(b_arr.reshape(len(b_arr),
+                                                                 -1)),
+                                   *sub_dtypes)
+            b_solve = torch.as_tensor(np.ascontiguousarray(b_arr, dtype=dtype),
+                                      device=device)
+            if use_left and M_fn is not None:
+                b2 = b_solve[:, None] if b_solve.ndim == 1 else b_solve
+                b_solve = M_fn(b2)
+                if b_arr.ndim == 1:
+                    b_solve = b_solve[:, 0]
+                A_fn = compose_operators(M_fn, A_fn)
+                M_fn = None
+            if method == "cg":
+                xs, info = cg_device(A_fn, b_solve, M_fn=M_fn, tol=tol,
+                                     max_it=max_it, verbosity=verbosity)
+            else:
+                xs, info = gmres_device(A_fn, b_solve, M_fn=M_fn, tol=tol,
+                                        max_it=max_it, restart=restart,
+                                        verbosity=verbosity)
+                estimates = info["residual_estimate"]
+            x[...] = xs.cpu().numpy().astype(x.dtype, copy=False)
+            nits = [int(np.max(info["niter"]))]
+            residuals = [float(np.max(info["residual"]))]
+        else:
+            op = lambda v: A.matvec_global(v)  # noqa: E731
+            M = self._preconditioner()
+            if use_left and M is not None:
+                op_base, M_left = op, M
+                op = lambda v: M_left(op_base(v))  # noqa: E731
+                M = None
+            else:
+                M_left = None
+            cols = b_arr.shape[1] if multi else 1
+            nits, residuals = [], []
+            for j in range(cols):
+                bj = b_arr[:, j] if multi else b_arr
+                if M_left is not None:
+                    bj = np.asarray(M_left(bj))
+                if method == "cg":
+                    xj, info = cg(op, bj, M=M, tol=tol, max_it=max_it,
+                                  verbosity=verbosity)
+                else:
+                    xj, info = gmres(op, bj, M=M, tol=tol, max_it=max_it,
+                                     restart=restart, verbosity=verbosity)
+                nits.append(info["niter"])
+                residuals.append(info["residual"])
+                if multi:
+                    x[:, j] = xj
+                else:
+                    x[:] = xj
+        self._info = {
+            "Nb_it": str(max(nits) if nits else 0),
+            "Nb_subdomains": str(len(self.subdomains)),
+            "Krylov_method": method,
+            "Relative_residual": str(max(residuals) if residuals else 0.0),
+            "Schwarz_method": opts.get("schwarz_method", "none"),
+            "Coarse_correction": opts.get("schwarz_coarse_correction", "none"),
+            "Nb_coarse_vectors": "0",
+        }
+        if estimates is not None:
+            # GMRES's own last residual estimate |g_{j+1}| / |b| (worst
+            # column), beside the residual recomputed after the solve
+            self._info["Residual_estimate"] = str(float(np.max(estimates)))
+        if opts.get("compute_residual"):
+            # -hpddm_compute_residual l2: the true ||Ax - b||
+            r = b_arr - np.asarray(A.matvec_global(np.asarray(x)))
+            res_l2 = float(np.linalg.norm(r))
+            self._info["Residual_l2"] = str(res_l2)
+            if verbosity:
+                print(f"computed residual (l2) = {res_l2:.6e}")
+
+    def get_information(self) -> dict:
+        return dict(self._info)
+
+
+# ----------------------------------------------------------------------
+def idx_pad_arr(subs, P, mp, n):
+    """Padded (P, mp) global-index map; pad rows point at the dummy row n."""
+    idx_pad = np.full((P, mp), n, dtype=np.int64)
+    for i, s in enumerate(subs):
+        idx_pad[i, :s.size] = s.ovr_to_global
+    return idx_pad
+
+
+def _as_list(x, P):
+    """Normalize a per-partition argument: allow bare arrays when P == 1."""
+    if isinstance(x, PerPartition):
+        return list(x)
+    if isinstance(x, (list, tuple)) and len(x) == P and (
+            P > 1 or not np.isscalar(x[0])):
+        return list(x)
+    return [x]
+
+
+def _block_jacobi_subdomains(distributed_operator, block_diag):
+    """No-overlap subdomains from the partition-diagonal blocks."""
+    A = distributed_operator
+    perm = A.target_cluster.get_permutation()
+    subs = []
+    for p, h in enumerate(block_diag):
+        t_off, t_sz = int(A.t_offsets[p]), int(A.t_sizes[p])
+        subs.append(_Subdomain(
+            ovr_to_global=perm[t_off:t_off + t_sz],
+            cluster_to_ovr=np.arange(t_sz),
+            neighbors=[], intersections=[],
+            local_hmatrix=h,
+            internal_ordering=True,
+        ))
+    return subs
+
+
+def _overlap_subdomains_from_generator(generator, ovr_list, c2o_list,
+                                       nbr_list, int_list, dtype):
+    """Overlapping subdomains, local matrices filled densely by the
+    generator at global user indices (builder variant 2)."""
+    subs = []
+    for p in range(len(ovr_list)):
+        ovr = np.asarray(ovr_list[p], dtype=np.int64)
+        m = len(ovr)
+        mat = np.zeros((m, m), dtype=_numpy_dtype(dtype), order="F")
+        generator.build_submatrix(ovr, ovr, mat)
+        subs.append(_Subdomain(ovr, c2o_list[p], nbr_list[p],
+                               int_list[p] if int_list else [],
+                               local_matrix=mat))
+    return subs
+
+
+class _MappedGenerator(VirtualGenerator):
+    """Generator view in subdomain-local numbering: entry (i, j) of the
+    subdomain is entry (map[i], map[j]) of the global generator."""
+
+    def __init__(self, generator, local_to_global):
+        super().__init__()
+        self.generator = generator
+        self.map = np.asarray(local_to_global, dtype=np.int64)
+        self.is_complex = getattr(generator, "is_complex", False)
+
+    def build_submatrix(self, J, K, mat):
+        self.generator.build_submatrix(self.map[np.asarray(J)],
+                                       self.map[np.asarray(K)], mat)
+
+
+def _hmatrix_subdomains(ovr_list, c2o_list, nbr_list, int_list, generator,
+                        coordinates, cluster_tree_builder,
+                        local_hmatrix_builder, radii=None, weights=None):
+    """Builder variant 3: the whole overlapping subdomain re-clustered and
+    re-compressed as an H-matrix."""
+    coords = np.asarray(coordinates, dtype=np.float64)
+    subs = []
+    for p in range(len(ovr_list)):
+        ovr = np.asarray(ovr_list[p], dtype=np.int64)
+        local_cluster = cluster_tree_builder.create_cluster_tree(
+            coords[:, ovr], 2, radii=radii, weights=weights)
+        h = local_hmatrix_builder.build(_MappedGenerator(generator, ovr),
+                                        local_cluster, local_cluster)
+        subs.append(_Subdomain(ovr, c2o_list[p], nbr_list[p],
+                               int_list[p] if int_list else [],
+                               local_hmatrix=h))
+    return subs
+
+
+class DDMSolverBuilder:
+    """The reference's `DDMSolverBuilder`, three constructor variants:
+    (1) (op, block_diagonal_hmatrix): block-Jacobi from the diagonal
+    H-matrices; (2) (op, block_diagonal_hmatrix, generator, ovr, c2o,
+    neighbors, intersections): dense overlapping subdomains filled by the
+    generator; (3) (op, ovr, c2o, neighbors, intersections, generator,
+    coordinates, cluster_tree_builder, local_hmatrix_builder): each
+    overlapping subdomain re-clustered and compressed as an H-matrix."""
+
+    def __init__(self, distributed_operator, *args, radii=None, weights=None):
+        P = distributed_operator.n_partitions
+        self.distributed_operator = distributed_operator
+        if len(args) >= 1 and _is_hmatrix_like(args[0]):
+            block_diag = _as_list(args[0], P)
+            if len(args) == 1:
+                subs = _block_jacobi_subdomains(distributed_operator,
+                                                block_diag)
+            else:
+                generator, ovr, c2o, nbr, inter = args[1:6]
+                subs = _overlap_subdomains_from_generator(
+                    generator, _as_list_of_arrays(ovr, P),
+                    _as_list_of_arrays(c2o, P), _as_list_of_arrays(nbr, P),
+                    _as_list_of_lists(inter, P), block_diag[0].dtype)
+            self._local_hmatrices = PerPartition(block_diag)
+        else:
+            ovr, c2o, nbr, inter, generator, coordinates = args[0:6]
+            cluster_tree_builder, local_hmatrix_builder = args[6], args[7]
+            subs = _hmatrix_subdomains(
+                _as_list_of_arrays(ovr, P), _as_list_of_arrays(c2o, P),
+                _as_list_of_arrays(nbr, P), _as_list_of_lists(inter, P),
+                generator, coordinates, cluster_tree_builder,
+                local_hmatrix_builder, radii=radii, weights=weights)
+            self._local_hmatrices = PerPartition(
+                [s.local_hmatrix for s in subs])
+        self.solver = DDMSolver(distributed_operator, subs)
+        self.local_to_global_numbering = PerPartition(
+            [s.ovr_to_global for s in subs])
+
+    def get_local_hmatrix(self):
+        return self._local_hmatrices
+
+
+class DDMSolverWithDenseLocalSolver(DDMSolverBuilder):
+    """The reference's `DDMSolverWithDenseLocalSolver`: the same variants,
+    each subdomain densified explicitly (on the device) so the dense tier
+    takes it whatever its size.  Variant 3 takes (op, ovr, c2o, neighbors,
+    intersections, generator, geometry, hmatrix_builder)."""
+
+    def __init__(self, distributed_operator, *args, radii=None, weights=None):
+        if len(args) >= 1 and not _is_hmatrix_like(args[0]):
+            # variant 3: insert a default cluster tree builder
+            ovr, c2o, nbr, inter, generator, geometry, hbuilder = args[0:7]
+            args = (ovr, c2o, nbr, inter, generator, geometry,
+                    ClusterTreeBuilder(), hbuilder)
+        super().__init__(distributed_operator, *args,
+                         radii=radii, weights=weights)
+        device = distributed_operator.device
+        for s in self.solver.subdomains:
+            if s.local_matrix is None:
+                s.local_matrix = s.dense_tensor(device)
+
+
+def _is_hmatrix_like(x):
+    return isinstance(x, (HMatrix, PerPartition)) or (
+        isinstance(x, (list, tuple)) and len(x) > 0
+        and isinstance(x[0], HMatrix))
+
+
+def _as_list_of_arrays(x, P):
+    """ovr/c2o/neighbors arguments: list-of-arrays per partition, or a bare
+    array when P == 1."""
+    if isinstance(x, np.ndarray):
+        return [x]
+    x = list(x)
+    if P == 1 and len(x) != 1:
+        return [np.asarray(x)]
+    return [np.asarray(a) for a in x]
+
+
+def _as_list_of_lists(x, P):
+    """intersections: per-partition list of per-neighbor index arrays.
+    A bare list of arrays is accepted for P == 1."""
+    if x is None:
+        return [[] for _ in range(P)]
+    x = list(x)
+    if len(x) == P and all(isinstance(a, list) for a in x):
+        return x
+    return [x]

@@ -1,5 +1,6 @@
-"""Kernels K1 and K2 against their plain version on the card (skips
-without one).
+"""Kernels K1 and K2 against their plain version on the card, in each
+launch structure, and a DDM solve on the golden data (skips without a
+card).
 
 Run on a machine with a CUDA device:
     python -m pytest --noconftest tests/test_torch_gpu.py
@@ -9,11 +10,15 @@ The kernels add into y with f32 atomics in an order that changes from run
 to run, so they agree with the plain version to 1e-5 relative.
 """
 
+import pathlib
+import struct
+
 import numpy as np
 import pytest
 import torch
 
 import htool_python_torch as T
+from htool_python_torch.config import get_config
 from htool_python_torch.models.geometry import \
     create_random_points_on_sphere
 from htool_python_torch.models.kernels import (hermitian_phase_kernel,
@@ -190,3 +195,121 @@ def test_product_after_recompression_on_the_card(cuda_device):
         A = {"N": A, "T": A.T, "C": A.conj().T}[trans]
         y = hm.matvec(x, trans)
         assert np.linalg.norm(y - A @ x) <= 1e-5 * np.linalg.norm(A @ x)
+
+
+@pytest.fixture
+def launch_mode():
+    """Sets config.matvec_kernel_mode for one test and restores 'fused'."""
+    cfg = get_config()
+    yield lambda mode: setattr(cfg, "matvec_kernel_mode", mode)
+    cfg.matvec_kernel_mode = "fused"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["per_bucket", "seq"])
+def test_launch_structures_match_plain_version(cuda_device, launch_mode,
+                                               mode):
+    """K1-pb / K1-seq and K2-pb / K2-seq: every storage case, against the
+    plain version, each counted under its own name (a per-bucket product
+    once per bucket)."""
+    launch_mode(mode)
+    points = np.random.RandomState(0).rand(3, 3000)
+    builder = T.ClusterTreeBuilder()
+    builder.set_maximal_leaf_size(64)
+    cluster = builder.create_cluster_tree(points, 2)
+    ops = {}
+    for symmetry, UPLO in (("N", "N"), ("S", "L"), ("S", "U")):
+        hb = T.HMatrixTreeBuilder(1e-3, 10.0, symmetry, UPLO,
+                                  device=cuda_device)
+        hb.set_dtype(torch.float32)
+        ops[symmetry, UPLO] = hb.build(
+            T.KernelGenerator(inverse_distance_kernel(0.1), points, points,
+                              device=cuda_device), cluster, cluster)
+    ops.update(_complex_operators(cuda_device))
+    for (symmetry, UPLO), hm in ops.items():
+        L, n = hm._pad_len, hm.shape[0]
+        table = hm._bucket_table()
+        name = cuda_matvec.launch_name(
+            cuda_matvec.KERNEL_NAME if hm.dtype == torch.float32
+            else cuda_matvec.K2_NAME, mode)
+        for trans in ("N", "T", "C"):
+            for k in (1, 3, 8, 11):
+                g = torch.Generator(cuda_device).manual_seed(k)
+                x = torch.zeros((L, k), dtype=hm.dtype, device=cuda_device)
+                x[:n] = torch.rand((n, k), dtype=hm.dtype,
+                                   device=cuda_device, generator=g)
+                before = dict(cuda_matvec.LAUNCH_COUNTS)
+                y = cuda_matvec.apply_hmatrix_cuda(hm._data, x, L, trans,
+                                                   symmetry, table)
+                after = dict(cuda_matvec.LAUNCH_COUNTS)
+                assert after[name] - before[name] == (
+                    table.n_buckets if mode == "per_bucket" else 1)
+                assert sum(after.values()) - sum(before.values()) \
+                    == after[name] - before[name]
+                y_plain = apply_hmatrix_padded(hm._data, x, L, trans,
+                                               symmetry)
+                err = (y - y_plain).abs().max() / y_plain.abs().max()
+                assert err <= 1e-5, (symmetry, UPLO, trans, k, float(err))
+
+
+_GOLDEN = (pathlib.Path(__file__).resolve().parents[1] / "data"
+           / "htool_generated_data")
+
+
+class _MatrixGenerator(T.VirtualGenerator):
+    def __init__(self, matrix):
+        super().__init__()
+        self.matrix = matrix
+        self.is_complex = np.iscomplexobj(matrix)
+
+    def build_submatrix(self, J, K, mat):
+        mat[:, :] = self.matrix[np.ix_(np.asarray(J), np.asarray(K))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("symmetry,schwarz", [("S", "asm"), ("N", "ras")])
+def test_golden_ddm_solve_on_the_card(cuda_device, symmetry, schwarz):
+    """A P = 2 block-Jacobi DDM solve of the golden problem
+    (data/htool_generated_data, tools/generate_test_data.py) in float32 /
+    complex64 on the card: GMRES converges to 1e-6 and the solution is
+    within 10 eps of sol.bin."""
+    path = _GOLDEN / ("output_sym" if symmetry == "S" else "output_non_sym")
+    if not (path / "matrix.bin").exists():
+        pytest.skip(f"no golden data at {path} (tools/generate_test_data.py "
+                    "writes it)")
+    raw = (path / "matrix.bin").read_bytes()
+    m, n = struct.unpack("@II", raw[:8])
+    A = np.frombuffer(raw[8:], dtype=np.complex128).reshape((m, n)).T
+    rhs = np.frombuffer((path / "rhs.bin").read_bytes()[4:], np.complex128)
+    sol = np.frombuffer((path / "sol.bin").read_bytes()[4:], np.complex128)
+    dtype = np.complex64
+    if symmetry == "S":
+        A, rhs, sol, dtype = A.real, rhs.real, sol.real, np.float32
+    cluster = T.read_cluster_from(
+        str(path / "cluster_2_cluster_tree_properties.csv"),
+        str(path / "cluster_2_cluster_tree.csv"))
+    eps = 1e-6
+    hb = T.HMatrixTreeBuilder(eps, 10, symmetry,
+                              "L" if symmetry == "S" else "N",
+                              device=cuda_device)
+    hb.set_dtype(dtype)
+    approx = T.DefaultApproximationBuilder(_MatrixGenerator(A), cluster,
+                                           cluster, hb)
+    solver = T.DDMSolverBuilder(approx.distributed_operator,
+                                approx.block_diagonal_hmatrix).solver
+    solver.set_hpddm_args("-hpddm_krylov_method gmres -hpddm_schwarz_method "
+                          f"{schwarz} -hpddm_max_it 200 -hpddm_tol 1e-6")
+    solver.facto_one_level()
+    f = rhs.astype(dtype)
+    x = np.zeros_like(f)
+    before = cuda_matvec.LAUNCH_COUNTS[cuda_matvec.launch_name(
+        cuda_matvec.KERNEL_NAME if symmetry == "S" else cuda_matvec.K2_NAME,
+        "fused")]
+    solver.solve(x, f)
+    info = solver.get_information()
+    assert float(info["Residual_estimate"]) <= 1e-6, info
+    assert cuda_matvec.LAUNCH_COUNTS[cuda_matvec.launch_name(
+        cuda_matvec.KERNEL_NAME if symmetry == "S" else cuda_matvec.K2_NAME,
+        "fused")] > before
+    err = np.linalg.norm(x - sol) / np.linalg.norm(sol)
+    assert err < 10 * eps, (err, info)
