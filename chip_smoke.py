@@ -55,21 +55,26 @@ Phases, in this order, one line each (`phase <name> {json}`):
                 seconds per block row, the global product ms (k = 1 and 8)
                 from a device-resident chain through the distributed
                 operator's device apply, the sampled error on 200 rows
-                (<= 1e-3) and K1's launches per product (one per block row);
+                (<= 1e-3), K1's launches per product (one per block row),
+                and the device apply against the same product with each
+                block row in K1's plain version, k in {1, 8}, in each
+                launch structure, within 1e-5 relative;
   ddm:          the reference's ddm_gmres stage — N = 20000 points, 4
                 partitions, eps 1e-4, f32 — DefaultApproximationBuilder ->
                 DDMSolverBuilder(op, block_diagonal_hmatrix) ->
                 facto_one_level (batched dense LU, inverse) -> ASM
                 right-preconditioned GMRES (restart 60, tol 1e-6, at most
                 300 iterations): the setup split, peak memory, max |I - A
-                A^-1| per subdomain, and for each solve (`ddm_solve` lines:
-                cold, warm, warm under each of the launch structures
+                A^-1| per subdomain, the block rows' check of the
+                distributed phase on these 4 block rows, and for each solve
+                (`ddm_solve` lines: cold — the first after the setup —,
+                warm, warm under each of the launch structures
                 'per_bucket' and 'seq', 4 right-hand sides) its iterations,
                 ms per iteration, K1 launches by structure, GMRES's own
                 residual estimate (<= 1e-6), the true residual |A x - f| /
-                |f| through the distributed operator (<= 1e-5), and the
-                same residual with the operator applied in float64 (the
-                plain version on the host).
+                |f| through the distributed operator, and the same residual
+                with the operator applied in float64 (the plain version on
+                the host), both <= 1e-5.
 Every kernel check (k1_check, k1_complex_x, k2_check) runs each case under
 the three launch structures of config.matvec_kernel_mode ('fused',
 'per_bucket', 'seq').
@@ -541,6 +546,76 @@ def float64_copy(T, torch, op):
     return out
 
 
+def plain_distributed_apply(torch, op):
+    """The distributed operator's global product with each block row's
+    product in its plain version (ops/matvec.py apply_hmatrix_padded),
+    gathered and scattered as `build_device_apply` does: the yardstick of
+    K1 on the block rows the distributed and ddm paths launch it on."""
+    from htool_python_torch.ops.matvec import apply_hmatrix_padded
+    from htool_python_torch.parallel.local_operator import LocalHMatrix
+
+    device = op.device
+    perm_s = torch.as_tensor(op.source_cluster.get_permutation(),
+                             dtype=torch.int64, device=device)
+    inv_t = torch.as_tensor(np.argsort(op.target_cluster.get_permutation()),
+                            dtype=torch.int64, device=device)
+
+    def apply(x2d):
+        x_int = x2d[perm_s]
+        y_int = torch.zeros((op.shape[0], x2d.shape[1]), dtype=x2d.dtype,
+                            device=device)
+        for p in range(op.n_partitions):
+            t_off, t_sz = int(op.t_offsets[p]), int(op.t_sizes[p])
+            for piece in op._operators(p):
+                check(isinstance(piece, LocalHMatrix),
+                      f"partition {p} holds a {type(piece).__name__}")
+                h, s = piece.hmatrix, piece.local_source_renumbering
+                nt, ns = h.shape
+                t_base = h.plan.target_offset if h.plan.t_off_absolute else 0
+                x_pad = torch.zeros((h._pad_len, x2d.shape[1]),
+                                    dtype=x2d.dtype, device=device)
+                x_pad[:ns] = x_int[s.offset:s.offset + s.size]
+                y = apply_hmatrix_padded(h._product_data(), x_pad,
+                                         h._pad_len, "N", h.symmetry)
+                y_int[t_off:t_off + t_sz] += y[t_base:t_base + nt]
+        return y_int[inv_t]
+
+    return apply
+
+
+def block_row_cases(torch, op, phase, ks=(1, 8)):
+    """The distributed operator's device apply (K1 on every block row)
+    against `plain_distributed_apply` on the same x, in every launch
+    structure, each within the kernels' tolerance.  These launches are
+    checks, not the main path."""
+    from htool_python_torch.config import get_config
+    from htool_python_torch.ops.cuda_matvec import MODES
+
+    cfg = get_config()
+    apply, plain = op.build_device_apply(), plain_distributed_apply(torch, op)
+    g = torch.Generator(op.device).manual_seed(11)
+    cases = []
+    for k in ks:
+        x = torch.rand((op.shape[1], k), dtype=torch.float32,
+                       device=op.device, generator=g)
+        y_plain = plain(x)
+        for mode in MODES:
+            cfg.matvec_kernel_mode = mode
+            try:
+                y = apply(x)
+                torch.cuda.synchronize()
+            finally:
+                cfg.matvec_kernel_mode = "fused"
+            abs_err = float((y - y_plain).abs().max())
+            rel = abs_err / float(y_plain.abs().max())
+            case = dict(k=k, mode=mode, max_rel_err=rel, max_abs_err=abs_err)
+            check(np.isfinite(rel) and rel <= KERNEL_TOL,
+                  f"{phase}: the block rows' product disagrees with its "
+                  f"plain version: {case}")
+            cases.append(case)
+    return cases
+
+
 def distributed(T, torch, n, device, counts):
     """The reference's 2-partition stage: block rows of the headline
     operator on a 2-partition cluster, the global product through the
@@ -573,6 +648,7 @@ def distributed(T, torch, n, device, counts):
     check(y1.shape == (n,) and np.isfinite(y1).all(),
           "distributed product shape or values")
     err = sampled_error(points, x1, y1, rng)
+    cases = block_row_cases(torch, op, "distributed")
     product = {f"k{k}": apply_chain_ms(torch, apply, n, k, torch.float32,
                                        device, k) for k in (1, 8)}
     info = op.get_distributed_information()
@@ -582,6 +658,7 @@ def distributed(T, torch, n, device, counts):
          partition_sizes=op.t_sizes.tolist(),
          compression_ratio=float(info["Compression_ratio"]),
          global_product_ms=product, sampled_rel_error=err,
+         block_row_check=cases,
          launches_per_product={k: v for k, v in counts.items() if v})
     check(err <= SAMPLED_ERR_MAX,
           f"distributed sampled error {err} above {SAMPLED_ERR_MAX}")
@@ -589,6 +666,7 @@ def distributed(T, torch, n, device, counts):
           and sum(counts.values()) == op.n_partitions,
           f"a fused global product launched {counts}, not one K1 launch "
           "per block row")
+    return cases
 
 
 def ddm(T, torch, n, device, counts):
@@ -629,23 +707,6 @@ def ddm(T, torch, n, device, counts):
     torch.cuda.synchronize()
     t_facto = time.perf_counter() - t0
     peak_setup = torch.cuda.max_memory_allocated() / 1e9
-
-    # the card's f32 LU and inverse: max |I - A_i A_i^-1| per subdomain
-    inv = solver._facto[1][0]
-    inverse_err = []
-    for i, s in enumerate(solver.subdomains):
-        Ai = s.dense_tensor(device)
-        R = Ai @ inv[i, :s.size, :s.size]
-        R.diagonal().sub_(1.0)
-        inverse_err.append(float(R.abs().max()))
-        del Ai, R
-
-    # per-iteration device work without the solver's host syncs: one
-    # operator and one preconditioner application, in a chain
-    A_fn = op.build_device_apply()
-    M_fn = solver._device_preconditioner()
-    op_ms = apply_chain_ms(torch, lambda v: A_fn(M_fn(v)), n, 1,
-                           torch.float32, device, 0)
 
     rng = np.random.RandomState(3)
     cfg = get_config()
@@ -689,18 +750,41 @@ def ddm(T, torch, n, device, counts):
         check(np.isfinite(x).all(), f"ddm {label}: non-finite solution")
         check(its <= DDM_MAX_IT and out["solver_residual"] <= DDM_TOL,
               f"ddm {label}: GMRES did not converge: {out}")
-        check(true_res <= DDM_TRUE_RES_MAX,
-              f"ddm {label}: true residual {true_res} above "
-              f"{DDM_TRUE_RES_MAX}")
+        check(true_res <= DDM_TRUE_RES_MAX
+              and true_res64 <= DDM_TRUE_RES_MAX,
+              f"ddm {label}: true residual {true_res} (f64 operator "
+              f"{true_res64}) above {DDM_TRUE_RES_MAX}")
         return out
 
     def rhs(k):
         return rng.rand(n, k).astype(np.float32)
 
+    # the first solve after the setup: of the solve's work only the product
+    # that formed f ran before it
+    cold = solve("cold", rhs(1))
+
+    # the card's f32 LU and inverse: max |I - A_i A_i^-1| per subdomain
+    inv = solver._facto[1][0]
+    inverse_err = []
+    for i, s in enumerate(solver.subdomains):
+        Ai = s.dense_tensor(device)
+        R = Ai @ inv[i, :s.size, :s.size]
+        R.diagonal().sub_(1.0)
+        inverse_err.append(float(R.abs().max()))
+        del Ai, R
+
+    cases = block_row_cases(torch, op, "ddm")
+    # per-iteration device work without the solver's host syncs: one
+    # operator and one preconditioner application, in a chain
+    A_fn = op.build_device_apply()
+    M_fn = solver._device_preconditioner()
+    op_ms = apply_chain_ms(torch, lambda v: A_fn(M_fn(v)), n, 1,
+                           torch.float32, device, 0)
+
     # the three structures solve the same system: their iteration counts
     # differ only by the order of the f32 atomic sums
     x_warm = rhs(1)
-    solves = [solve("cold", rhs(1)), solve("warm", x_warm),
+    solves = [cold, solve("warm", x_warm),
               solve("warm", x_warm, "per_bucket"),
               solve("warm", x_warm, "seq"), solve("blocked", rhs(4))]
     by_mode = {s["mode"]: s for s in solves[1:4]}
@@ -724,8 +808,8 @@ def ddm(T, torch, n, device, counts):
          inverse_max_abs_err=inverse_err,
          apply_plus_precond_chain_ms=op_ms,
          host_ms_per_iteration=solves[1]["ms_per_iteration"] - op_ms,
-         solves=solves)
-    return solves
+         block_row_check=cases, solves=solves)
+    return cases
 
 
 def main(argv=None) -> int:
@@ -829,9 +913,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     dist_counts = {}
-    distributed(T, torch, args.n_dist, device, dist_counts)
+    row_cases = distributed(T, torch, args.n_dist, device, dist_counts)
     ddm_counts = {}
-    ddm(T, torch, args.n_ddm, device, ddm_counts)
+    row_cases += ddm(T, torch, args.n_ddm, device, ddm_counts)
+
+    def block_row_err(mode):
+        return max(c["max_abs_err"] for c in row_cases if c["mode"] == mode)
 
     def entry(name, mode, source, replaces, launches, case_list, timing_):
         mine = [c for c in case_list if c["mode"] == mode]
@@ -854,7 +941,8 @@ def main(argv=None) -> int:
     kernels = [
         dict(entry(KERNEL_NAME, "fused", k1_src, pallas + "538",
                    counts[KERNEL_NAME], cases, timing),
-             max_abs_err_complex_x=max(c["max_abs_err"] for c in cx_cases)),
+             max_abs_err_complex_x=max(c["max_abs_err"] for c in cx_cases),
+             max_abs_err_block_rows=block_row_err("fused")),
         entry(K2_NAME, "fused", k2_src, pallas + "571", helm_counts[K2_NAME],
               k2, helm_timing)]
     for mode, line in (("per_bucket", "522"), ("seq", "649")):
@@ -864,6 +952,7 @@ def main(argv=None) -> int:
                   ddm_counts[launch_name(KERNEL_NAME, mode)], cases, timing)
         c = entry(K2_NAME, mode, k2_src, pallas + line, 0, k2, helm_timing)
         e["max_abs_err"] = max(e["max_abs_err"], c["max_abs_err"])
+        e["max_abs_err_block_rows"] = block_row_err(mode)
         e.update({f"complex64_{key}": c[key] for key in
                   ("ms", "ms_k8", "plain_ms", "plain_ms_k8", "bound_ms",
                    "bound_ms_k8", "max_abs_err")})

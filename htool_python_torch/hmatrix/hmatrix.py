@@ -248,13 +248,11 @@ class HMatrix:
         """Dense matrix in the cluster-internal numbering of this block, as
         a tensor on the H-matrix's device: each bucket's blocks are formed
         in one batched op and added into place with one index_add_ (their
-        padding is masked, so padded entries add nothing)."""
+        padding is masked out, so the buffer is exactly nt x ns)."""
         nt, ns = self.shape
         tb = self.plan.target_offset if self.plan.t_off_absolute else 0
-        buckets = self.plan.dense_buckets + self.plan.lowrank_buckets
-        pad = max([max(b.pt, b.ps) for b in buckets] + [1])
-        rows, cols = max(nt, ns) + pad, max(nt, ns) + pad
-        out = torch.zeros(rows * cols, dtype=self.dtype, device=self.device)
+        cols = ns
+        out = torch.zeros(nt * ns, dtype=self.dtype, device=self.device)
         data = self._assembly_data()
 
         def put(t0, s0, t_sz, s_sz, blk):
@@ -286,7 +284,7 @@ class HMatrix:
                 if self.symmetry == "H":
                     mt = mt.conj()
                 put(b.s_off[m] - tb, b.t_off[m], b.s_sz[m], b.t_sz[m], mt)
-        return out.view(rows, cols)[:nt, :ns]
+        return out.view(nt, ns)
 
     def to_dense(self) -> np.ndarray:
         """Dense matrix in the cluster-internal numbering of this block."""

@@ -140,6 +140,20 @@ def test_product_matches_reference_product(reference_rows):
     assert _rel(_port_operator(ref, port_cluster) @ x, y_ref) <= 1e-12
 
 
+@pytest.mark.parametrize("symmetry", ["N", "S"])
+def test_rectangular_block_row_densifies_like_reference(reference_rows,
+                                                        symmetry):
+    """A block row (t_sz x N) densifies to its own shape, equal to the
+    reference's densification of the same row."""
+    ref, port_cluster, _ = reference_rows(np.float64, symmetry, 3)
+    op = _port_operator(ref, port_cluster)
+    for p, ref_row in enumerate(ref.hmatrix):
+        h = op._global_to_local[p][0].hmatrix
+        dense = h.to_dense()
+        assert dense.shape == (int(op.t_sizes[p]), _N)
+        assert _rel(dense, np.asarray(ref_row.to_dense())) <= 1e-12
+
+
 @pytest.mark.parametrize("P", [1, 3])
 @pytest.mark.parametrize("symmetry", ["N", "S"])
 @pytest.mark.parametrize("dtype", [np.float64, np.complex128])

@@ -266,28 +266,57 @@ class _MatrixGenerator(T.VirtualGenerator):
         mat[:, :] = self.matrix[np.ix_(np.asarray(J), np.asarray(K))]
 
 
+def _golden_problem(complex_case, P, size=400, seed=0):
+    """(A, rhs, sol, P-partition cluster) of the golden problem: read from
+    data/htool_generated_data where it is, else rebuilt in memory with the
+    recipe of tools/generate_test_data.py (the data directory is not part
+    of a checkout)."""
+    path = _GOLDEN / ("output_non_sym" if complex_case else "output_sym")
+    if (path / "matrix.bin").exists():
+        raw = (path / "matrix.bin").read_bytes()
+        m, n = struct.unpack("@II", raw[:8])
+        A = np.frombuffer(raw[8:], dtype=np.complex128).reshape((m, n)).T
+        rhs = np.frombuffer((path / "rhs.bin").read_bytes()[4:],
+                            np.complex128)
+        sol = np.frombuffer((path / "sol.bin").read_bytes()[4:],
+                            np.complex128)
+        cluster = T.read_cluster_from(
+            str(path / f"cluster_{P}_cluster_tree_properties.csv"),
+            str(path / f"cluster_{P}_cluster_tree.csv"))
+        return A, rhs, sol, cluster
+    rng = np.random.RandomState(seed)
+    pts = rng.randn(3, size)
+    pts /= np.linalg.norm(pts, axis=0, keepdims=True)
+    pts += 0.1 * rng.rand(3, size)
+    d = np.linalg.norm(pts[:, :, None] - pts[:, None, :], axis=0)
+    if complex_case:
+        A = np.exp(2j * d) / (4 * np.pi * np.maximum(d, 1e-2))
+        np.fill_diagonal(A, np.abs(A).max())
+        r7 = np.random.RandomState(7)
+        A = A + 0.02 * np.abs(A).mean() * (r7.rand(*A.shape)
+                                           + 1j * r7.rand(*A.shape))
+    else:
+        A = 1.0 / (1e-1 + d)
+    A = A + np.abs(A).sum(axis=1).max() * np.eye(size, dtype=A.dtype)
+    rhs = rng.rand(size) + (1j * rng.rand(size) if complex_case else 0)
+    sol = np.linalg.solve(A, rhs)
+    builder = T.ClusterTreeBuilder()
+    builder.set_maximal_leaf_size(10)
+    cluster = builder.create_cluster_tree(pts, 2, size_of_partition=P)
+    return (A.astype(np.complex128), rhs.astype(np.complex128),
+            sol.astype(np.complex128), cluster)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("symmetry,schwarz", [("S", "asm"), ("N", "ras")])
 def test_golden_ddm_solve_on_the_card(cuda_device, symmetry, schwarz):
     """A P = 2 block-Jacobi DDM solve of the golden problem
-    (data/htool_generated_data, tools/generate_test_data.py) in float32 /
-    complex64 on the card: GMRES converges to 1e-6 and the solution is
-    within 10 eps of sol.bin."""
-    path = _GOLDEN / ("output_sym" if symmetry == "S" else "output_non_sym")
-    if not (path / "matrix.bin").exists():
-        pytest.skip(f"no golden data at {path} (tools/generate_test_data.py "
-                    "writes it)")
-    raw = (path / "matrix.bin").read_bytes()
-    m, n = struct.unpack("@II", raw[:8])
-    A = np.frombuffer(raw[8:], dtype=np.complex128).reshape((m, n)).T
-    rhs = np.frombuffer((path / "rhs.bin").read_bytes()[4:], np.complex128)
-    sol = np.frombuffer((path / "sol.bin").read_bytes()[4:], np.complex128)
+    (tools/generate_test_data.py) in float32 / complex64 on the card:
+    GMRES converges to 1e-6 and the solution is within 10 eps of sol."""
+    A, rhs, sol, cluster = _golden_problem(symmetry == "N", 2)
     dtype = np.complex64
     if symmetry == "S":
         A, rhs, sol, dtype = A.real, rhs.real, sol.real, np.float32
-    cluster = T.read_cluster_from(
-        str(path / "cluster_2_cluster_tree_properties.csv"),
-        str(path / "cluster_2_cluster_tree.csv"))
     eps = 1e-6
     hb = T.HMatrixTreeBuilder(eps, 10, symmetry,
                               "L" if symmetry == "S" else "N",
