@@ -75,9 +75,45 @@ Phases, in this order, one line each (`phase <name> {json}`):
                 |f| through the distributed operator, and the same residual
                 with the operator applied in float64 (the plain version on
                 the host), both <= 1e-5.
+  k1al_check:   kernel K1-al (K1 on the aligned low-rank layout,
+                ops/matvec.py align_lowrank) against its plain version on
+                the same data, storage N and S-L x trans N and T x k in {1,
+                4, 8, 128}, each within 1e-5 relative, on the headline
+                operator and its S-L twin (N = 40000, leaf 128) and on the
+                hlu operator and its S-L twin (N = 32768, leaf 64); with
+                K1's time on the canonical layout of the same operator,
+                both layouts' stored bytes and the bound (the canonical
+                bytes);
+  hlu:          the reference's pinned 32k factorization
+                (tests/test_hier_local_solver.py:65-96): N points on the
+                unit sphere (seed 11), second_kind_kernel(0.5, 0.5 N), eps
+                1e-3, eta 10, leaf 64, f32 -> deepcopy -> lu_factorization
+                (HODLR, no dense fallback) -> lu_solve('N', hm * x), then
+                cholesky_factorization('L') / cholesky_solve, then
+                lu_factorization with config.matvec_aligned_layout on
+                (every product through K1-al); each `hlu_factorization`
+                line has the HODLR build and factor seconds, the ranks per
+                level, the products and launches of the build, solve ms
+                (refinement included) and its device profile
+                (torch.profiler), peak memory, and the residual (<
+                eps) and error (< 10 eps); the `hlu` line adds the device
+                profile of one LU factorization;
+  ddm_hier:     the reference's pinned hierarchical-tier solve
+                (tests/test_hier_local_solver.py:21-62): N = 16384 on the
+                sphere (seed 5), second_kind_kernel(0.5, 10), eps 1e-4,
+                leaf 64, P = 2 (subdomains above ddm_local_dense_max and
+                hodlr_threshold), block-Jacobi, ASM GMRES (restart 60, tol
+                1e-6, at most 200 iterations): both local solvers HODLR,
+                fewer than 200 iterations, true residual <= 1e-5 through
+                the f32 operator and its f64 copy; the setup split, ms per
+                iteration cold and warm, the wall ms of one apply plus
+                preconditioner in a device-resident chain, the device busy
+                ms, device operations and busy share of each and of one
+                solve (torch.profiler), and the block rows' check of
+                `distributed`.
 Every kernel check (k1_check, k1_complex_x, k2_check) runs each case under
 the three launch structures of config.matvec_kernel_mode ('fused',
-'per_bucket', 'seq').
+'per_bucket', 'seq'); K1-al has the fused structure only.
 Then a `kernels` JSON line, the nvidia-smi line, and last the JSON ok
 line.  Any failure raises and exits non-zero; without a CUDA device the
 script exits non-zero before printing any result.  Imports nothing of JAX.
@@ -106,6 +142,10 @@ DDM_MAX_IT = 300
 # the true residual |A x - f| / |f| of the f32 solve, recomputed through
 # the f32 product: GMRES stops at tol 1e-6 on its own estimate
 DDM_TRUE_RES_MAX = 1e-5
+HLU_EPS = 1e-3  # tests/test_hier_local_solver.py:65-96
+DDM_HIER_EPS = 1e-4  # tests/test_hier_local_solver.py:21-62
+DDM_HIER_MAX_IT = 200
+K1AL_KS = (1, 4, 8, 128)
 
 
 def check(cond, msg):
@@ -138,6 +178,36 @@ def cuda_ms(torch, fn, reps, warmup=3):
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_profile(torch, fn, reps=10, top=6):
+    """The device activity (kernels, copies, fills) that torch.profiler
+    records over `reps` calls of fn after one warm-up call, per call: its
+    summed duration (busy ms), the number of activities, the wall ms
+    (profiler on), the busy share of the wall time, and the `top`
+    activities by duration."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms, count = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
+    busy = sum(ms for ms, _ in by_name.values())
+    return {"busy_ms": busy / reps, "wall_ms": wall_ms / reps,
+            "busy_share": busy / wall_ms,
+            "device_ops": sum(c for _, c in by_name.values()) / reps,
+            "top": [{"name": name[:90], "ms": ms / reps, "count": c / reps}
+                    for name, (ms, c) in sorted(by_name.items(),
+                                                key=lambda kv: -kv[1][0])[:top]]}
 
 
 def copy_rate_gbs(torch, device, nbytes=1 << 30):
@@ -812,6 +882,295 @@ def ddm(T, torch, n, device, counts):
     return cases
 
 
+def k1al_cases(torch, operators, label, ks=K1AL_KS, reps=20):
+    """K1-al on the aligned layout of every operator x trans x k against
+    its plain version on the same data (the aligned windows add zero
+    columns only); K1 on the canonical layout timed beside it.  These
+    launches are checks, not the main path."""
+    from htool_python_torch.ops.cuda_matvec import (BucketTable,
+                                                    apply_hmatrix_cuda)
+    from htool_python_torch.ops.matvec import (ALIGN_LANE, align_lowrank,
+                                               apply_hmatrix_padded,
+                                               stored_bytes)
+
+    results = []
+    for (symmetry, UPLO), hm in operators.items():
+        L, n = hm._pad_len, hm.shape[0]
+        data = hm._data
+        aligned = align_lowrank(data, ALIGN_LANE)
+        table, table_al = (BucketTable(d, hm.device) for d in (data, aligned))
+        check(table_al.aligned, "align_lowrank's data is not marked aligned")
+        g = torch.Generator(hm.device).manual_seed(13)
+        for trans in ("N", "T"):
+            for k in ks:
+                x = torch.zeros((L, k), dtype=torch.float32, device=hm.device)
+                x[:n] = torch.rand((n, k), device=hm.device, generator=g)
+                y_plain = apply_hmatrix_padded(aligned, x, L, trans, symmetry)
+                y = apply_hmatrix_cuda(aligned, x, L, trans, symmetry,
+                                       table_al)
+                torch.cuda.synchronize()
+                abs_err = float((y - y_plain).abs().max())
+                rel = abs_err / float(y_plain.abs().max())
+                bound, bound_by = product_bound(data, L, k)
+                case = dict(
+                    operator=label, storage=symmetry + ("-" + UPLO if UPLO
+                                                        != "N" else ""),
+                    N=n, trans=trans, k=k, max_rel_err=rel,
+                    max_abs_err=abs_err,
+                    ms=cuda_ms(torch, lambda: apply_hmatrix_cuda(
+                        aligned, x, L, trans, symmetry, table_al), reps=reps),
+                    k1_ms=cuda_ms(torch, lambda: apply_hmatrix_cuda(
+                        data, x, L, trans, symmetry, table), reps=reps),
+                    plain_ms=cuda_ms(torch, lambda: apply_hmatrix_padded(
+                        aligned, x, L, trans, symmetry), reps=2, warmup=1),
+                    bound_ms=bound, bound_by=bound_by,
+                    aligned_bound_ms=product_bound(aligned, L, k)[0],
+                    stored_bytes=stored_bytes(data),
+                    aligned_stored_bytes=stored_bytes(aligned))
+                del y, y_plain, x
+                emit("k1al_check", **case)
+                check(np.isfinite(rel) and rel <= KERNEL_TOL,
+                      f"k1al_check: K1-al disagrees with its plain version: "
+                      f"{case}")
+                results.append(case)
+    return results
+
+
+def second_kind_operator(T, torch, n, rng, diagonal, eps, symmetry, UPLO,
+                         device, partitions=None):
+    """The reference's factorization operators
+    (tests/test_hier_local_solver.py): n points on the unit sphere drawn
+    from `rng`, second_kind_kernel(0.5, diagonal), leaf 64, eta 10, f32;
+    with `partitions`, the DefaultApproximationBuilder of a cluster with
+    that many partitions instead of one H-matrix.  Returns (operator or
+    builder, seconds)."""
+    from htool_python_torch.models.geometry import \
+        create_random_points_on_sphere
+    from htool_python_torch.models.kernels import second_kind_kernel
+
+    points = create_random_points_on_sphere(n, rng)
+    t0 = time.perf_counter()
+    cb = T.ClusterTreeBuilder()
+    cb.set_maximal_leaf_size(64)
+    cluster = (cb.create_cluster_tree(points, 2) if partitions is None else
+               cb.create_cluster_tree(points, 2, size_of_partition=partitions))
+    gen = T.KernelGenerator(second_kind_kernel(0.5, diagonal), points, points,
+                            device=device)
+    hb = T.HMatrixTreeBuilder(eps, 10.0, symmetry, UPLO, device=device)
+    hb.set_dtype(torch.float32)
+    out = (hb.build(gen, cluster, cluster) if partitions is None else
+           T.DefaultApproximationBuilder(gen, cluster, cluster, hb))
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def hlu(T, torch, n, device, counts):
+    """The reference's 32k factorization: LU, Cholesky, and LU with every
+    product through K1-al; `counts` gets the launches of the aligned LU's
+    factorization and solve.  Returns (operator, its S-L twin)."""
+    import copy
+
+    from htool_python_torch.config import get_config
+    from htool_python_torch.ops import cuda_matvec
+
+    rng = np.random.RandomState(11)
+    hm, t_asm = second_kind_operator(T, torch, n, rng, 0.5 * n, HLU_EPS, "N",
+                                     "N", device)
+    x_ref = rng.rand(n).astype(np.float32)
+    b = hm * x_ref
+    b_dev = torch.as_tensor(b, device=device)
+    cfg = get_config()
+
+    def factorize(kind, aligned):
+        fac = copy.deepcopy(hm)
+        cfg.matvec_aligned_layout = aligned
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            cuda_matvec.reset_launch_counts()
+            t0 = time.perf_counter()
+            if kind == "lu":
+                fac.lu_factorization()
+            else:
+                fac.cholesky_factorization("L")
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            build = {key: v for key, v in cuda_matvec.LAUNCH_COUNTS.items()
+                     if v}
+            check(fac._factorization[0] == "hodlr",
+                  f"hlu {kind}: the HODLR build fell back to the dense path")
+
+            def solve(rhs):
+                return (fac.lu_solve("N", rhs) if kind == "lu"
+                        else fac.cholesky_solve("L", rhs))
+
+            x = solve(b)
+            launches = {key: v for key, v in cuda_matvec.LAUNCH_COUNTS.items()
+                        if v}
+            solve_ms = cuda_ms(torch, lambda: solve(b_dev), reps=5, warmup=1)
+            solve_profile = device_profile(torch, lambda: solve(b_dev),
+                                           reps=3)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+        finally:
+            cfg.matvec_aligned_layout = False
+        check(x.shape == (n,) and x.dtype == np.float32
+              and np.isfinite(x).all(), f"hlu {kind}: solution shape/values")
+        res = float(np.linalg.norm(hm * x - b) / np.linalg.norm(b))
+        err = float(np.linalg.norm(x - x_ref) / np.linalg.norm(x_ref))
+        prof = fac._factorization[1].profile
+        out = dict(kind=kind, aligned_layout=aligned, N=n,
+                   factorization_s=seconds, hodlr_build_s=prof["build_s"],
+                   hodlr_factor_s=prof["factor_s"], levels=prof["L"],
+                   hodlr_leaf=prof["hodlr_leaf"],
+                   max_ranks_per_level=prof["max_ranks"],
+                   build_products=prof["products"],
+                   build_columns=prof["columns"], build_launches=build,
+                   launches=launches, solve_ms=solve_ms,
+                   solve_device_profile=solve_profile, residual=res,
+                   error=err, peak_memory_GB=peak)
+        emit("hlu_factorization", **out)
+        check(res < HLU_EPS and err < 10 * HLU_EPS,
+              f"hlu {kind}: residual {res} (< {HLU_EPS}) or error {err} (< "
+              f"{10 * HLU_EPS})")
+        return out, launches
+
+    lu, _ = factorize("lu", False)
+    # where the factorization's time goes on the device
+    facto_profile = device_profile(
+        torch, lambda: copy.deepcopy(hm).lu_factorization(), reps=1, top=8)
+    chol, _ = factorize("cholesky", False)
+    al, al_launches = factorize("lu", True)
+    check(lu["build_launches"].get(cuda_matvec.KERNEL_NAME, 0) > 0
+          and cuda_matvec.ALIGNED_NAME not in lu["launches"],
+          f"hlu: the LU build launched {lu['build_launches']}, not K1")
+    # with the aligned layout every product, its dense buckets included
+    # (K1's dense path inside the same launch), is one K1-al launch
+    check(al_launches.get(cuda_matvec.ALIGNED_NAME, 0) > 0
+          and set(al_launches) == {cuda_matvec.ALIGNED_NAME},
+          f"hlu: the aligned LU launched {al_launches}, not K1-al alone")
+    counts.update(al_launches)
+    rng_s = np.random.RandomState(11)
+    hm_s, t_asm_s = second_kind_operator(T, torch, n, rng_s, 0.5 * n, HLU_EPS,
+                                         "S", "L", device)
+    emit("hlu", N=n, epsilon=HLU_EPS, eta=10.0, leaf=64, dtype="float32",
+         kernel="second_kind_kernel(0.5, 0.5 N)", assembly_s=t_asm,
+         assembly_s_twin_S_L=t_asm_s,
+         compression_ratio=float(hm.get_local_information()
+                                 ["Compression_ratio"]),
+         lu_s=lu["factorization_s"], cholesky_s=chol["factorization_s"],
+         aligned_lu_s=al["factorization_s"],
+         aligned_lu_launches=al_launches,
+         lu_factorization_device_profile=facto_profile)
+    return hm, hm_s
+
+
+def ddm_hier(T, torch, n, device, counts):
+    """The reference's hierarchical-tier solve: 2 subdomains of ~n/2 dofs,
+    each factorized by HODLR; K1's launches counted around the warm
+    solve."""
+    from htool_python_torch.config import get_config
+    from htool_python_torch.ops import cuda_matvec
+
+    P = 2
+    rng = np.random.RandomState(5)
+    torch.cuda.reset_peak_memory_stats()
+    approx, t_rows = second_kind_operator(T, torch, n, rng, 10.0,
+                                          DDM_HIER_EPS, "N", "N", device,
+                                          partitions=P)
+    t0 = time.perf_counter()
+    block_diag = approx.block_diagonal_hmatrix
+    t_extract = time.perf_counter() - t0
+    op = approx.distributed_operator
+    solver = T.DDMSolverBuilder(op, block_diag).solver
+    cfg = get_config()
+    for s in solver.subdomains:
+        check(s.local_matrix is None and s.size > cfg.ddm_local_dense_max
+              and s.size > cfg.hodlr_threshold,
+              f"ddm_hier: a subdomain of {s.size} dofs is not in the "
+              "hierarchical tier's range")
+    solver.set_hpddm_args(
+        "-hpddm_krylov_method gmres -hpddm_schwarz_method asm "
+        f"-hpddm_max_it {DDM_HIER_MAX_IT} -hpddm_gmres_restart 60 "
+        f"-hpddm_tol {DDM_TOL}")
+    t0 = time.perf_counter()
+    solver.facto_one_level()
+    torch.cuda.synchronize()
+    t_facto = time.perf_counter() - t0
+    check(solver._facto is None,
+          "ddm_hier: large subdomains fell into the dense tier")
+    kinds = [h["solver"].kind for h in solver._hier]
+    check(kinds == ["hodlr"] * P,
+          f"ddm_hier: local solvers {kinds}, not HODLR (dense fallback)")
+    check(all(s.local_matrix is None for s in solver.subdomains),
+          "ddm_hier: facto_one_level densified a subdomain")
+    profiles = [h["solver"].hmatrix._factorization[1].profile
+                for h in solver._hier]
+    op64 = float64_copy(T, torch, op)
+    x_ref = rng.rand(n).astype(np.float32)
+    f = op * x_ref
+
+    def solve(label):
+        x = np.zeros_like(f)
+        cuda_matvec.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.solve(x, f)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        info = solver.get_information()
+        its = int(info["Nb_it"])
+        true_res = float(np.linalg.norm(op * x - f) / np.linalg.norm(f))
+        true_res64 = float(np.linalg.norm(op64 * x.astype(np.float64) - f)
+                           / np.linalg.norm(f))
+        out = dict(solve=label, iterations=its, seconds=seconds,
+                   ms_per_iteration=seconds * 1e3 / its,
+                   solver_residual=float(info["Residual_estimate"]),
+                   true_residual=true_res, true_residual_f64=true_res64,
+                   solution_rel_error=float(np.linalg.norm(x - x_ref)
+                                            / np.linalg.norm(x_ref)),
+                   launches={key: v for key, v in
+                             cuda_matvec.LAUNCH_COUNTS.items() if v})
+        emit("ddm_hier_solve", **out)
+        check(np.isfinite(x).all(), f"ddm_hier {label}: non-finite solution")
+        check(its < DDM_HIER_MAX_IT and true_res <= DDM_TRUE_RES_MAX
+              and true_res64 <= DDM_TRUE_RES_MAX,
+              f"ddm_hier {label}: {its} iterations, true residual "
+              f"{true_res} (f64 operator {true_res64})")
+        return out
+
+    cold = solve("cold")
+    warm = solve("warm")
+    counts.update(warm["launches"])
+    cases = block_row_cases(torch, op, "ddm_hier")
+    A_fn = op.build_device_apply()
+    M_fn = solver._device_preconditioner()
+    chain_ms = apply_chain_ms(torch, lambda v: A_fn(M_fn(v)), n, 1,
+                              torch.float32, device, 0)
+    r = torch.rand((n, 1), device=device)
+    busy = {name: device_profile(torch, lambda: fn(r)) for name, fn in
+            (("apply", A_fn), ("preconditioner", M_fn))}
+    x = np.zeros_like(f)
+    busy["solve"] = device_profile(torch, lambda: solver.solve(x, f), reps=1,
+                                   top=8)
+    emit("ddm_hier", N=n, partitions=P, epsilon=DDM_HIER_EPS, eta=10.0,
+         leaf=64, dtype="float32", kernel="second_kind_kernel(0.5, 10)",
+         schwarz="asm", tol=DDM_TOL, restart=60,
+         subdomain_sizes=[s.size for s in solver.subdomains],
+         local_solvers=kinds,
+         setup_s={"block_rows": t_rows, "extract_block_diagonal": t_extract,
+                  "facto_one_level": t_facto,
+                  "hodlr_build": [p["build_s"] for p in profiles],
+                  "hodlr_factor": [p["factor_s"] for p in profiles]},
+         hodlr={key: [p[key] for p in profiles] for key in
+                ("L", "hodlr_leaf", "max_ranks", "products", "columns")},
+         build_profile=approx.build_profile,
+         peak_memory_GB=torch.cuda.max_memory_allocated() / 1e9,
+         apply_plus_precond_chain_ms=chain_ms,
+         device_profile=busy,
+         block_row_check=cases, solves=[cold, warm])
+    return cases
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=40000,
@@ -826,6 +1185,11 @@ def main(argv=None) -> int:
                     help="points of the distributed path (default: 40000)")
     ap.add_argument("--n-ddm", type=int, default=20000,
                     help="points of the DDM solve (default: 20000)")
+    ap.add_argument("--n-hlu", type=int, default=32768,
+                    help="points of the factorization (default: 32768)")
+    ap.add_argument("--n-ddm-hier", type=int, default=16384,
+                    help="points of the hierarchical-tier DDM solve "
+                    "(default: 16384)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -840,8 +1204,8 @@ def main(argv=None) -> int:
         create_random_points_in_sphere, create_random_points_on_sphere)
     from htool_python_torch.models.kernels import hermitian_phase_kernel
     from htool_python_torch.ops import cuda_build
-    from htool_python_torch.ops.cuda_matvec import (K2_NAME, KERNEL_NAME,
-                                                    launch_name)
+    from htool_python_torch.ops.cuda_matvec import (ALIGNED_NAME, K2_NAME,
+                                                    KERNEL_NAME, launch_name)
     from htool_python_torch.ops.matvec import stored_bytes
 
     device = torch.device("cuda")
@@ -889,6 +1253,12 @@ def main(argv=None) -> int:
     del operators
     cx_cases = kernel_cases(torch, {("N", "N"): hm}, "k1_complex_x",
                             torch.complex64, ("N", "C"), ks=(1, 4))
+    pts_main = create_random_points_in_sphere(
+        args.n, np.random.RandomState(args.seed))
+    al_cases = k1al_cases(torch, {
+        ("N", "N"): hm,
+        ("S", "L"): build_operator(T, torch, pts_main, "S", "L", device)[0]},
+        "headline")
     del hm, data
     torch.cuda.empty_cache()
 
@@ -916,6 +1286,17 @@ def main(argv=None) -> int:
     row_cases = distributed(T, torch, args.n_dist, device, dist_counts)
     ddm_counts = {}
     row_cases += ddm(T, torch, args.n_ddm, device, ddm_counts)
+
+    hlu_counts = {}
+    hm_lu, hm_lu_s = hlu(T, torch, args.n_hlu, device, hlu_counts)
+    al_cases += k1al_cases(torch, {("N", "N"): hm_lu, ("S", "L"): hm_lu_s},
+                           "hlu")
+    del hm_lu, hm_lu_s
+    torch.cuda.empty_cache()
+    hier_counts = {}
+    row_cases += ddm_hier(T, torch, args.n_ddm_hier, device, hier_counts)
+    check(hier_counts.get(KERNEL_NAME, 0) > 0,
+          "the ddm_hier solve never launched kernel K1")
 
     def block_row_err(mode):
         return max(c["max_abs_err"] for c in row_cases if c["mode"] == mode)
@@ -957,6 +1338,30 @@ def main(argv=None) -> int:
                   ("ms", "ms_k8", "plain_ms", "plain_ms_k8", "bound_ms",
                    "bound_ms_k8", "max_abs_err")})
         kernels.append(e)
+
+    def al_case(operator, k):
+        return next(c for c in al_cases if c["operator"] == operator
+                    and c["storage"] == "N" and c["trans"] == "N"
+                    and c["k"] == k)
+
+    head = al_case("hlu", 1)
+    kernels.append({
+        "name": ALIGNED_NAME, "route": "cuda", "source": k1_src,
+        "replaces": pallas + "355-378 (_step_body kind 'alr'; _load_al :89, "
+        "_accum_al :95)",
+        "launches": hlu_counts[ALIGNED_NAME],
+        "max_abs_err": max(c["max_abs_err"] for c in al_cases),
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None,
+        "operator": f"hlu, N={args.n_hlu}, storage N, trans N",
+        "stored_bytes": head["stored_bytes"],
+        "aligned_stored_bytes": head["aligned_stored_bytes"],
+        **{f"{key}_k{k}": al_case("hlu", k)[key]
+           for k in (8, 128) for key in ("ms", "plain_ms", "bound_ms")},
+        **{f"k1_ms_k{k}": al_case("hlu", k)["k1_ms"] for k in (1, 8, 128)},
+        **{f"headline_{key}_k{k}": al_case("headline", k)[key]
+           for k in (1, 8, 128) for key in ("ms", "k1_ms")}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

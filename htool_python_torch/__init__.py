@@ -7,9 +7,12 @@ truncation, dense fills, recompression) runs as batched torch ops on the
 device; the compressed product runs the hand-written CUDA kernels K1 (real
 f32, csrc/hmatrix_product.cu) and K2 (complex64,
 csrc/hmatrix_product_complex.cu) through ops/cuda_matvec.py on CUDA
-tensors, and their plain PyTorch version on CPU tensors.  Distributed
-operators (parallel/) and the one-level Schwarz DDM solver with GMRES / CG
-(solvers/) run their products through the same kernels.  Entry points run
+tensors, and their plain PyTorch version on CPU tensors (K1-al, K1 on
+the aligned low-rank layout, with config.matvec_aligned_layout).  H-LU /
+H-Cholesky (hmatrix/factorization.py, HODLR by randomized peeling in
+ops/hodlr.py), distributed operators (parallel/) and the one-level
+Schwarz DDM solver with its dense and hierarchical local solvers and
+GMRES / CG (solvers/) run their products through the same kernels.  Entry points run
 on CUDA unless the caller passes device='cpu'.  Nothing here imports JAX or the reference package.
 
 The names mirror the reference's public surface for the parts ported so

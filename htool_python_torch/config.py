@@ -41,11 +41,32 @@ class Config:
     # launch of a persistent grid walking the buckets; any other value
     # makes the next product raise ValueError
     matvec_kernel_mode: str = "fused"
+    # the real f32 product reads the low-rank buckets in the aligned layout
+    # (ops/matvec.py align_lowrank, lane ALIGN_LANE) through kernel K1-al;
+    # HMatrix._product_data is the only reader
+    matvec_aligned_layout: bool = False
     # DDM local solves (solvers/ddm.py): subdomains of at most this many
     # dofs (or with an explicit dense matrix) go to the batched dense tier;
-    # larger H-matrix subdomains need the hierarchical (H-LU) tier, which
-    # is not ported yet (ROADMAP item 13)
+    # larger H-matrix subdomains stay compressed and go to the
+    # hierarchical tier (a copy of each, lu_factorization)
     ddm_local_dense_max: int = 6144
+    # factorization (hmatrix/factorization.py): blocks up to this size
+    # densify and factor (exact); larger ones use the level-batched HODLR
+    # Woodbury factorization (ops/hodlr.py) built by randomized peeling
+    # through the operator's own product
+    hodlr_threshold: int = 4096
+    hodlr_leaf_size: int = 256
+    hodlr_sample_size: int = 32
+    hodlr_power_iters: int = 1
+    # cap on the adaptive sample doubling: a level whose off-diagonal rank
+    # still saturates at this many samples raises HODLRRankSaturationError
+    # (the factorization then falls back to the dense path)
+    hodlr_max_sample_size: int = 1024
+    # HODLR build tolerance = hodlr_eps_factor * hmatrix.epsilon
+    hodlr_eps_factor: float = 0.1
+    # iterative-refinement sweeps per HODLR solve (x += F^-1 (b - A x), the
+    # residual through the operator's product)
+    hodlr_refine_iters: int = 2
     # dense tier: 'invert' forms each subdomain's inverse once at
     # facto_one_level, so a preconditioner application is one batched
     # GEMM; 'solve' keeps the LU factors and solves with them each time

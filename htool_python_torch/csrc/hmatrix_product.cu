@@ -46,6 +46,25 @@
 //     CTAs walk the blocks in bucket order with a grid-stride loop.
 // All three stream the same bytes, so the same bound holds for each.
 //
+// K1-al, the aligned low-rank layout.  With config.matvec_aligned_layout
+// on, a float32 operator's low-rank buckets come pre-shifted into aligned
+// windows (htool_python_torch/ops/matvec.py `align_lowrank`, lane 8 f32 =
+// 32 bytes, one DRAM sector): every low-rank block's offsets are multiples
+// of 8 rows and its factor widths whole windows of zero-padded columns.
+// It replaces the reference's `_step_body` kind "alr"
+// (pallas_matvec.py:355-378) with `_load_al` (:89) and `_accum_al` (:95),
+// which read the same layout at 128 lanes.  It computes K1's function on
+// that data and is bound by the same bytes (the canonical layout's; the
+// zero columns are its extra cost).  The `aligned` instantiation of
+// `block_product` (fused launch only, `hm_k1_launch_al`) uses the
+// alignment where K1 cannot: its x segment starts on a 32-byte boundary
+// and spans whole sectors, so it is staged with 16-byte vector loads and no
+// ragged head (`stage_x_al`); at k = 1 and 2 its output window starts on a
+// multiple of 8 rows, so four consecutive y values (4 rows, or 2 rows x 2
+// columns) go out as one float4 atomicAdd (`col_combine_al`) where K1 adds
+// one row at a time.  Dense buckets take K1's path unchanged; at k >= 4
+// nothing changes (K1 already adds float4 over columns).
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libhmatrix_product.so hmatrix_product.cu
 // (done at first use by htool_python_torch/ops/cuda_build.py).
@@ -146,6 +165,58 @@ __device__ void stage_x(float* xs, int ldx, const float* __restrict__ x,
     }
 }
 
+// stage_x for a segment that starts on a multiple of 8 rows (n a multiple
+// of 8), read with 16-byte loads: when the CTA takes every column (kc ==
+// k) the segment x[off : off + n, :] is one contiguous, 32-byte aligned run
+// of n * k floats; when k % 4 == 0 each row's KC columns are whole float4.
+// Otherwise, or when the segment runs past x, it stages as stage_x does.
+template <int KC>
+__device__ void stage_x_al(float* xs, int ldx, const float* __restrict__ x,
+                           long long lx, int k, int c0, int kc, long long off,
+                           int n) {
+    if (off + n > lx) {
+        stage_x<KC>(xs, ldx, x, lx, k, c0, kc, off, n);
+        return;
+    }
+    if (kc == k) {
+        const float4* src = reinterpret_cast<const float4*>(x + off * k);
+        const int n4 = n * k / 4;
+        for (int q = threadIdx.x; q < n4; q += blockDim.x) {
+            const float4 v = __ldg(src + q);
+            if (k == 1) {
+                reinterpret_cast<float4*>(xs)[q] = v;
+                continue;
+            }
+            const float vals[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const int e = 4 * q + i, j = e / k;
+                xs[(e - j * k) * ldx + j] = vals[i];
+            }
+        }
+        for (int e = threadIdx.x; e < n * (KC - kc); e += blockDim.x)
+            xs[(kc + e / n) * ldx + e % n] = 0.0f;  // columns past k
+        return;
+    }
+    if constexpr (KC % 4 == 0) {
+        if (k % 4 == 0) {
+            constexpr int G = KC / 4;  // float4 per row
+            for (int e = threadIdx.x; e < n * G; e += blockDim.x) {
+                const int j = e / G, g = e % G;
+                float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+                if (4 * g < kc)
+                    v = __ldg(reinterpret_cast<const float4*>(x + (off + j) * k + c0 + 4 * g));
+                xs[(4 * g) * ldx + j] = v.x;
+                xs[(4 * g + 1) * ldx + j] = v.y;
+                xs[(4 * g + 2) * ldx + j] = v.z;
+                xs[(4 * g + 3) * ldx + j] = v.w;
+            }
+            return;
+        }
+    }
+    stage_x<KC>(xs, ldx, x, lx, k, c0, kc, off, n);
+}
+
 // out[row, c] = sum_j A[row, j] * xs[c*ldx + j] for row < n_rows, one warp
 // per row.  A is row-major (n_rows, n_in) with n_in a multiple of 4 and
 // rows 16-byte aligned.  to_y: atomically added into y[out_off + row,
@@ -214,6 +285,52 @@ __device__ void col_combine(const float* __restrict__ A, int n_rows, int n_out,
     }
 }
 
+// col_combine<KC, false> for k == KC <= 2 on an output window that starts
+// on a multiple of 8 rows (n_out a multiple of 8): each thread owns R = 4 /
+// KC consecutive rows, reads their R factor values of each rank row with
+// one vector load, and adds its 4 consecutive y values (row-major: R rows x
+// KC columns) with one float4 atomicAdd, skipped when all four are zero.
+template <int KC>
+__device__ void col_combine_al(const float* __restrict__ A, int n_rows,
+                               int n_out, const float* w,
+                               float* __restrict__ y, long long ly,
+                               long long out_off) {
+    constexpr int R = 4 / KC;
+    for (int j0 = threadIdx.x * R; j0 < n_out; j0 += blockDim.x * R) {
+        float acc[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[q] = 0.0f;
+        for (int rr = 0; rr < n_rows; ++rr) {
+            const float* a_row = A + (long long)rr * n_out + j0;
+            float a[R];
+            if constexpr (R == 4) {
+                const float4 v = __ldg(reinterpret_cast<const float4*>(a_row));
+                a[0] = v.x; a[1] = v.y; a[2] = v.z; a[3] = v.w;
+            } else {
+                const float2 v = __ldg(reinterpret_cast<const float2*>(a_row));
+                a[0] = v.x; a[1] = v.y;
+            }
+            float wv[KC];
+            load_kc<KC>(w + rr * KC, wv);
+#pragma unroll
+            for (int q = 0; q < R; ++q)
+#pragma unroll
+                for (int c = 0; c < KC; ++c)
+                    acc[q * KC + c] = fmaf(a[q], wv[c], acc[q * KC + c]);
+        }
+        if (acc[0] == 0.0f && acc[1] == 0.0f && acc[2] == 0.0f && acc[3] == 0.0f)
+            continue;
+        const long long yr = out_off + j0;
+        if (yr + R <= ly) {
+            atomicAdd(reinterpret_cast<float4*>(y + yr * KC),
+                      make_float4(acc[0], acc[1], acc[2], acc[3]));
+        } else {
+            for (int q = 0; q < 4; ++q)
+                if (yr + q / KC < ly && acc[q] != 0.0f) atomicAdd(y + yr * KC + q, acc[q]);
+        }
+    }
+}
+
 // The bucket holding grid block `blk`: the last table row with first <= blk.
 __device__ __forceinline__ int find_bucket(const Bucket* __restrict__ table,
                                            int n_buckets, long long blk) {
@@ -227,8 +344,9 @@ __device__ __forceinline__ int find_bucket(const Bucket* __restrict__ table,
 
 // The product of block i of bucket B for the column group c0 = blockIdx.y
 // * KC, with shared memory xs (KC, max_dim + 4) followed by ws (max_r, KC).
-// All three launch structures below run this body.
-template <int KC>
+// All three launch structures below run this body; AL (K1-al, fused
+// launch only) reads low-rank blocks of the aligned layout.
+template <int KC, bool AL = false>
 __device__ __forceinline__ void block_product(
         const Bucket& B, long long i, const float* __restrict__ x, long long lx,
         float* __restrict__ y, long long ly, int k, int swapped, int symmetric,
@@ -259,6 +377,31 @@ __device__ __forceinline__ void block_product(
     } else {
         const float* Ut = reinterpret_cast<const float*>(B.a) + i * r * pt;
         const float* V = reinterpret_cast<const float*>(B.v) + i * r * ps;
+        if constexpr (AL) {
+            // K1-al: aligned segments; at k <= 2, float4 atomics over rows
+            if (fwd) {
+                stage_x_al<KC>(xs, ps + 4, x, lx, k, c0, kc, s, ps);
+                __syncthreads();
+                row_dot<KC, false>(V, r, ps, xs, ps + 4, ws, nullptr, ly, k, c0, kc, 0, vec);
+                __syncthreads();
+                if constexpr (KC <= 2)  // then k == KC
+                    col_combine_al<KC>(Ut, r, pt, ws, y, ly, t);
+                else
+                    col_combine<KC, false>(Ut, r, pt, ws, KC, y, ly, k, c0, kc, t, vec);
+                __syncthreads();
+            }
+            if (tr) {
+                stage_x_al<KC>(xs, pt + 4, x, lx, k, c0, kc, t, pt);
+                __syncthreads();
+                row_dot<KC, false>(Ut, r, pt, xs, pt + 4, ws, nullptr, ly, k, c0, kc, 0, vec);
+                __syncthreads();
+                if constexpr (KC <= 2)  // then k == KC
+                    col_combine_al<KC>(V, r, ps, ws, y, ly, s);
+                else
+                    col_combine<KC, false>(V, r, ps, ws, KC, y, ly, k, c0, kc, s, vec);
+            }
+            return;
+        }
         if (fwd) {
             stage_x<KC>(xs, ps + 4, x, lx, k, c0, kc, s, ps);
             __syncthreads();
@@ -277,8 +420,9 @@ __device__ __forceinline__ void block_product(
     }
 }
 
-// 'fused': one CTA per (block, column group), every bucket in one launch.
-template <int KC>
+// 'fused': one CTA per (block, column group), every bucket in one launch;
+// AL: K1-al.
+template <int KC, bool AL>
 __global__ void __launch_bounds__(kThreads)
 hmatrix_product_kernel(const Bucket* __restrict__ table, int n_buckets,
                        const float* __restrict__ x, long long lx,
@@ -289,7 +433,7 @@ hmatrix_product_kernel(const Bucket* __restrict__ table, int n_buckets,
     float* ws = xs + (long long)(max_dim + 4) * KC;
     const long long blk = blockIdx.x;
     const Bucket B = table[find_bucket(table, n_buckets, blk)];
-    block_product<KC>(B, blk - B.first, x, lx, y, ly, k, swapped, symmetric, xs, ws);
+    block_product<KC, AL>(B, blk - B.first, x, lx, y, ly, k, swapped, symmetric, xs, ws);
 }
 
 // 'per_bucket' (K1-pb): one launch per bucket `row`, one CTA per (block of
@@ -383,24 +527,47 @@ unsigned col_groups(int k, int KC) { return (unsigned)((k + KC - 1) / KC); }
 // empty bucket; y (ly, k) must be zeroed by the caller.  Each returns the
 // cudaError_t of its launches (0 on success).
 
-// 'fused': one launch over every bucket.
-extern "C" int hm_k1_launch(const void* table, int n_buckets, long long n_blocks,
-                            const float* x, long long lx, float* y, long long ly,
-                            int k, int swapped, int symmetric, int max_dim,
-                            int max_r, void* stream) {
+namespace {
+
+template <bool AL>
+int launch_fused(const void* table, int n_buckets, long long n_blocks,
+                 const float* x, long long lx, float* y, long long ly, int k,
+                 int swapped, int symmetric, int max_dim, int max_r,
+                 void* stream) {
     if (n_blocks == 0 || k == 0) return 0;
     const Bucket* t = static_cast<const Bucket*>(table);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     return with_kc(k, [&](auto kc) {
         constexpr int KC = decltype(kc)::value;
         const size_t smem = smem_bytes(KC, max_dim, max_r);
-        cudaError_t e = allow_smem(hmatrix_product_kernel<KC>, smem);
+        cudaError_t e = allow_smem(hmatrix_product_kernel<KC, AL>, smem);
         if (e != cudaSuccess) return e;
         const dim3 grid((unsigned)n_blocks, col_groups(k, KC));
-        hmatrix_product_kernel<KC><<<grid, kThreads, smem, st>>>(
+        hmatrix_product_kernel<KC, AL><<<grid, kThreads, smem, st>>>(
             t, n_buckets, x, lx, y, ly, k, swapped, symmetric, max_dim);
         return cudaGetLastError();
     });
+}
+
+}  // namespace
+
+// 'fused': one launch over every bucket.
+extern "C" int hm_k1_launch(const void* table, int n_buckets, long long n_blocks,
+                            const float* x, long long lx, float* y, long long ly,
+                            int k, int swapped, int symmetric, int max_dim,
+                            int max_r, void* stream) {
+    return launch_fused<false>(table, n_buckets, n_blocks, x, lx, y, ly, k,
+                               swapped, symmetric, max_dim, max_r, stream);
+}
+
+// K1-al: the fused launch over data in the aligned low-rank layout (every
+// low-rank block's offsets a multiple of 8 rows, its widths multiples of 8).
+extern "C" int hm_k1_launch_al(const void* table, int n_buckets, long long n_blocks,
+                               const float* x, long long lx, float* y, long long ly,
+                               int k, int swapped, int symmetric, int max_dim,
+                               int max_r, void* stream) {
+    return launch_fused<true>(table, n_buckets, n_blocks, x, lx, y, ly, k,
+                              swapped, symmetric, max_dim, max_r, stream);
 }
 
 // 'per_bucket' (K1-pb): one launch per table row.  `host_rows` is the

@@ -17,13 +17,11 @@ import torch
 from ..clustering.cluster import Cluster
 from ..config import as_torch_dtype, get_config, resolve_device
 from ..ops.cuda_matvec import BucketTable, apply_hmatrix_cuda
-from ..ops.matvec import RankMajorFactors, apply_hmatrix_user, pack_bucket_data
+from ..ops.matvec import (ALIGN_LANE, RankMajorFactors, align_lowrank,
+                          apply_hmatrix_user, pack_bucket_data)
+from . import factorization
 from .assembly import assemble
 from .plan import BlockPlan, build_block_plan
-
-_FACTORIZATION_SLICE = ("H-matrix factorization (lu_*/cholesky_*) is not "
-                        "ported yet: ROADMAP queue 1, item 13 (HODLR "
-                        "factorization, a later slice)")
 
 
 def reduce_hmatrix_information(hmatrices) -> dict:
@@ -68,7 +66,11 @@ class HMatrix:
         self.UPLO = plan.UPLO
         self.dtype = as_torch_dtype(dtype)
         self._dev_perms = None  # lazy device permutation cache
-        self._table = None  # the kernels' bucket table, built at 1st product
+        # (product data, its BucketTable): the kernels' table, built at the
+        # first product of each layout
+        self._table = None
+        self._aligned = None  # the aligned low-rank layout, built at 1st use
+        self._factorization = None  # set by lu/cholesky_factorization
         # every low-rank leaf an exact SVD pair (U = Q W diag(s) with
         # orthonormal Q W, V with orthonormal rows): recompression may then
         # trim by the row norms of Ut (hmatrix/recompression.py).  The
@@ -80,7 +82,9 @@ class HMatrix:
                      + [b.ps for b in plan.dense_buckets + plan.lowrank_buckets]
                      + [1])
         # the reference's padded length (+384 slack, 128-multiple): every
-        # block segment [off, off + pt) lies inside it
+        # block segment [off, off + pt) lies inside it, and so does every
+        # aligned window [off - off % lane, + W), which ends before
+        # off + pt + 2 * lane (<= 255 rows past the segment at lane 128)
         self._pad_len = -(-(max(nt, ns) + maxdim + 384) // 128) * 128
 
     @classmethod
@@ -135,20 +139,32 @@ class HMatrix:
     # ------------------------------------------------------------------
     # products
     def _product_data(self):
-        """The bucket data products consume (the canonical storage)."""
+        """The bucket data products consume: with
+        config.matvec_aligned_layout on, a float32 operator with low-rank
+        buckets gives their aligned layout (align_lowrank, lane ALIGN_LANE,
+        built once and kept), which the wrapper sends to kernel K1-al;
+        otherwise the canonical storage."""
+        if (get_config().matvec_aligned_layout
+                and self.dtype == torch.float32 and self._data["lr"]):
+            if self._aligned is None:
+                self._aligned = align_lowrank(self._data, ALIGN_LANE)
+            return self._aligned
         return self._data
 
     def _assembly_data(self):
-        """The bucket data as assembled, which densification and
-        recompression read (the same storage: the port keeps no separate
-        product layout)."""
+        """The bucket data as assembled (the canonical storage), which
+        densification and recompression read; products may read the
+        aligned layout instead (`_product_data`)."""
         return self._data
 
     def _bucket_table(self) -> BucketTable:
-        """The product data's BucketTable, checked and built once."""
-        if self._table is None:
-            self._table = BucketTable(self._product_data(), self.device)
-        return self._table
+        """The product data's BucketTable, checked and built once per
+        layout: a table names its layout's offsets and tensors, so a flip
+        of matvec_aligned_layout builds the other layout's table."""
+        data = self._product_data()
+        if self._table is None or self._table[0] is not data:
+            self._table = (data, BucketTable(data, self.device))
+        return self._table[1]
 
     def _to_device(self, x):
         """(tensor on self.device, was the input a tensor)."""
@@ -309,18 +325,20 @@ class HMatrix:
         return self.to_dense_in_user_numbering_tensor().cpu().numpy()
 
     # ------------------------------------------------------------------
-    # factorizations: a later slice
+    # factorizations (hmatrix/factorization.py); in place: deepcopy first
     def lu_factorization(self):
-        raise NotImplementedError(_FACTORIZATION_SLICE)
+        factorization.lu_factorization(self)
 
     def cholesky_factorization(self, UPLO: str = "L"):
-        raise NotImplementedError(_FACTORIZATION_SLICE)
+        factorization.cholesky_factorization(self, UPLO)
 
     def lu_solve(self, trans: str, b):
-        raise NotImplementedError(_FACTORIZATION_SLICE)
+        """Solve A^(trans) x = b with the factorization; numpy in -> numpy
+        out, tensor in -> tensor out."""
+        return factorization.lu_solve(self, trans, b)
 
     def cholesky_solve(self, UPLO: str, b):
-        raise NotImplementedError(_FACTORIZATION_SLICE)
+        return factorization.cholesky_solve(self, UPLO, b)
 
     # ------------------------------------------------------------------
     def __deepcopy__(self, memo):
@@ -332,7 +350,12 @@ class HMatrix:
         new._data = {"dense": list(self._data["dense"]),
                      "lr": list(self._data["lr"])}
         new._lr_ranks = [r.copy() for r in self._lr_ranks]
+        if self._aligned is not None:
+            new._aligned = {"dense": list(self._aligned["dense"]),
+                            "lr": list(self._aligned["lr"]),
+                            "aligned": self._aligned["aligned"]}
         new._table = None  # it names this operator's containers
+        new._factorization = None
         return new
 
     # ------------------------------------------------------------------
@@ -353,6 +376,7 @@ class HMatrix:
                                       self.plan.lowrank_buckets, lr_arrays,
                                       self.device)
         self._lr_ranks = [np.asarray(r) for r in lr_ranks]
+        self._aligned = None  # laid out from the replaced factors
         self._table = None  # it names the replaced tensors by pointer
 
     # ------------------------------------------------------------------

@@ -24,6 +24,14 @@ under its own name (`hmatrix_product`, `hmatrix_product/per_bucket`,
 `hmatrix_product/seq`, and the same for `hmatrix_product_complex`); a
 per-bucket product counts one launch per non-empty bucket.
 
+K1-al (`hmatrix_product/aligned`, the reference's `_step_body` kind
+"alr"): float32 data in the aligned low-rank layout (ops/matvec.py
+`align_lowrank`, which HMatrix._product_data gives with
+config.matvec_aligned_layout on) launches K1's aligned instantiation in
+the 'fused' structure.  The data is an ordinary bucket list, so the plain
+version and the 'per_bucket' / 'seq' structures take it as it is (they
+count as K1-pb / K1-seq).
+
 Contract (the same as `apply_hmatrix_padded`, their plain version in
 ops/matvec.py): for bucket data {'dense': [(D, t_off, s_off, mirror)],
 'lr': [(Ut, V, t_off, s_off, mirror)]} and x_pad (L, k), return y_pad
@@ -62,10 +70,11 @@ import numpy as np
 import torch
 
 from ..config import get_config
-from .matvec import apply_hmatrix_padded
+from .matvec import apply_hmatrix_padded, is_aligned
 
 KERNEL_NAME = "hmatrix_product"  # K1
 K2_NAME = "hmatrix_product_complex"
+ALIGNED_NAME = "hmatrix_product/aligned"  # K1-al
 
 MODES = ("fused", "per_bucket", "seq")
 
@@ -79,6 +88,7 @@ def launch_name(kernel: str, mode: str) -> str:
 # launches it
 LAUNCH_COUNTS = {launch_name(kern, mode): 0 for kern in (KERNEL_NAME, K2_NAME)
                  for mode in MODES}
+LAUNCH_COUNTS[ALIGNED_NAME] = 0
 
 _TABLE_FIELDS = 10  # int64 fields per bucket row (struct Bucket in the .cu)
 
@@ -111,8 +121,9 @@ def _library(name):
     pre = "hm_k1" if name == KERNEL_NAME else "hm_k2"
     conj = [] if name == KERNEL_NAME else [i, i]  # conj_fwd, conj_tr
     whole = [p, i, ll, p, ll, p, ll, i, i, i, *conj, i, i, p]
+    aligned = [("launch_al", whole)] if name == KERNEL_NAME else []
     for suffix, argtypes in (
-            ("launch", whole), ("launch_seq", whole),
+            ("launch", whole), ("launch_seq", whole), *aligned,
             ("launch_per_bucket", [p, p, i, p, ll, p, ll, i, i, i, *conj,
                                    p])):
         fn = getattr(lib, f"{pre}_{suffix}")
@@ -217,7 +228,8 @@ class BucketTable:
     sides of every block (mirror terms, and the plain version's masked
     ones), so x and y must both hold `extent` rows; the wrapper checks that
     on every call, since the kernels themselves skip rows past the end of
-    y and read zeros past the end of x.  On CUDA the table also holds the
+    y and read zeros past the end of x.  `aligned`: the data is in the
+    aligned low-rank layout, which a fused K1 product runs as K1-al.  On CUDA the table also holds the
     device table of bucket descriptors (struct Bucket in the .cu files),
     built after every operand was checked, and its host copy `host_rows`,
     which a per-bucket product reads for each launch's block count and
@@ -233,6 +245,7 @@ class BucketTable:
             raise ValueError(f"unsupported device {device}")
         self.device = device
         self.dtype = _data_dtype(data)
+        self.aligned = is_aligned(data)
         self.extent = _extent(data)
         self.table = None
         if device.type == "cuda":
@@ -265,6 +278,8 @@ def _launch(name, mode, table, x, y, trans, sym):
     """Kernel `name` in launch structure `mode` over `table`, x (L, k) into
     the zeroed y (ny, k); x and y hold the kernel's dtype."""
     lib = _library(name)
+    counter = (ALIGNED_NAME if name == KERNEL_NAME and mode == "fused"
+               and table.aligned else launch_name(name, mode))
     device = x.device
     L, k = x.shape
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -280,15 +295,15 @@ def _launch(name, mode, table, x, y, trans, sym):
                 table.table.data_ptr(), table.host_rows.ctypes.data,
                 table.n_buckets, *io, stream)
         else:
-            fn = getattr(lib, pre + ("_launch" if mode == "fused"
-                                     else "_launch_seq"))
+            fn = getattr(lib, pre + ("_launch_seq" if mode == "seq"
+                                     else "_launch_al" if counter
+                                     == ALIGNED_NAME else "_launch"))
             rc = fn(table.table.data_ptr(), table.n_buckets, table.n_blocks,
                     *io, table.max_dim, table.max_r, stream)
     if rc != 0:
-        raise RuntimeError(f"{launch_name(name, mode)} launch failed: CUDA "
+        raise RuntimeError(f"{counter} launch failed: CUDA "
                            f"error {rc} ({err(rc).decode()})")
-    LAUNCH_COUNTS[launch_name(name, mode)] += (
-        table.n_buckets if mode == "per_bucket" else 1)
+    LAUNCH_COUNTS[counter] += table.n_buckets if mode == "per_bucket" else 1
 
 
 def real_view_product(real_product, x_pad, ny_pad: int):

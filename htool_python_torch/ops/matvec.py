@@ -196,6 +196,52 @@ def pack_bucket_data(dense_buckets, dense_arrays, lr_buckets, lr_arrays,
     return {"dense": dense, "lr": lr}
 
 
+# lane of the aligned low-rank layout K1-al reads: 8 f32 values, 32 bytes,
+# one DRAM sector (two float4).  The reference's 128 is the TPU's lane
+# count; at leaf-64 plans it would quadruple a 64-wide factor's bytes,
+# where 8 adds 12.5 %.
+ALIGN_LANE = 8
+
+
+def is_aligned(data) -> bool:
+    """True for bucket data in the aligned low-rank layout
+    (`align_lowrank`)."""
+    return bool(data.get("aligned"))
+
+
+def _align_win(w: int, lane: int) -> int:
+    """Aligned window covering w values shifted by less than one lane."""
+    return -(-(w + lane) // lane) * lane
+
+
+def align_lowrank(data, lane: int = ALIGN_LANE):
+    """The aligned low-rank layout (reference ops/matvec.py:187-216 with
+    its 128 lanes as `lane`): each low-rank block's Ut is shifted along its
+    pt axis by t_off % lane and V along its ps axis by s_off % lane, both
+    zero-padded to the window W = ceil((w + lane) / lane) * lane, and the
+    offsets rounded down to a multiple of `lane`; mirror flags are kept and
+    dense buckets left as they are.  The result is an ordinary bucket list
+    (plus the marker 'aligned': lane) whose low-rank blocks are wider
+    windows with zero columns, so any product of it equals the product of
+    `data`; kernel K1-al reads its segments as whole aligned sectors."""
+    def shift(A, W, sh):
+        nb, r, w = A.shape
+        Ap = torch.nn.functional.pad(A, (0, W - w))
+        idx = (torch.arange(W, device=A.device)[None, :]
+               - sh[:, None].long()) % W
+        return torch.gather(Ap, 2, idx[:, None, :].expand(nb, r, W))
+
+    lr_al = []
+    for Ut, V, t_off, s_off, mirror in data["lr"]:
+        Wt, Ws = _align_win(Ut.shape[2], lane), _align_win(V.shape[2], lane)
+        t_sh, s_sh = t_off % lane, s_off % lane
+        lr_al.append((shift(Ut, Wt, t_sh).contiguous(),
+                      shift(V, Ws, s_sh).contiguous(),
+                      (t_off - t_sh).contiguous(), (s_off - s_sh).contiguous(),
+                      mirror))
+    return {"dense": list(data["dense"]), "lr": lr_al, "aligned": lane}
+
+
 def padded_lengths(plan):
     """(ny_pad, ns_pad) covering every scatter/gather target of the plan,
     for both 'N' and transpose products (mirrors write to both sides); the

@@ -6,16 +6,21 @@ Counterpart of htool_python_tpu/solvers/ddm.py: `DDMSolver`,
 subdomains, `-hpddm_*` option strings, multi-RHS solves,
 `get_information`.
 
-The one-level preconditioner is the dense tier of the reference: every
-subdomain matrix is built on the device into one padded (P, mp, mp) batch
-(identity in the pad, so the factorization stays valid), factorized with
-one batched LU, and, with `config.ddm_dense_apply == 'invert'`, inverted
-once.  Each application is then gather -> one batched GEMM (or LU solve)
--> weighted scatter-add into a dummy row n that catches the pad.
+The one-level preconditioner has the reference's two local-solver tiers:
 
-Not ported yet, and raising NotImplementedError rather than densifying:
-the hierarchical (H-LU) tier for H-matrix subdomains above
-`config.ddm_local_dense_max` (ROADMAP item 13) and the GenEO coarse space
+* the dense tier: subdomains of at most `config.ddm_local_dense_max` dofs,
+  or with an explicit dense matrix, are built on the device into one
+  padded (P, mp, mp) batch (identity in the pad, so the factorization
+  stays valid), factorized with one batched LU and, with
+  `config.ddm_dense_apply == 'invert'`, inverted once.  An application is
+  gather -> one batched GEMM (or LU solve) -> weighted scatter-add into a
+  dummy row n that catches the pad.
+* the hierarchical tier: larger H-matrix subdomains stay compressed; a
+  copy of each is factorized with `lu_factorization` (HODLR above
+  `config.hodlr_threshold`, hmatrix/factorization.py) and an application
+  is, per subdomain, gather -> HODLR solve -> weighted scatter-add.
+
+Not ported yet, and raising NotImplementedError: the GenEO coarse space
 `build_coarse_space` (ROADMAP item 16).
 """
 
@@ -27,17 +32,15 @@ import torch
 from ..clustering.cluster import ClusterTreeBuilder
 from ..config import as_torch_dtype, get_config, require_full_f32
 from ..hmatrix.assembly import _numpy_dtype
+from ..hmatrix.factorization import _solve_internal
 from ..hmatrix.generator import VirtualGenerator
 from ..hmatrix.hmatrix import HMatrix
+from ..ops.hodlr import hodlr_solve
 from ..parallel.builders import PerPartition
 from ..parallel.distributed_operator import DistributedOperator
 from .krylov import cg, cg_device, compose_operators, gmres, gmres_device
 from .options import DEFAULTS, parse_hpddm_args
 
-_HIER_TIER = ("the hierarchical (H-LU) local solver for H-matrix subdomains "
-              "larger than config.ddm_local_dense_max is not ported yet "
-              "(ROADMAP queue 1, item 13: HODLR factorization); raise "
-              "ddm_local_dense_max to densify such subdomains explicitly")
 _GENEO = ("two-level GenEO coarse spaces (build_coarse_space, coarse.py) are "
           "not ported yet (ROADMAP queue 1, item 16)")
 
@@ -86,6 +89,35 @@ class _Subdomain:
         return self.local_hmatrix.to_dense_in_user_numbering_tensor().to(device)
 
 
+class _HierLocalSolver:
+    """The local solve of one subdomain of the hierarchical tier (the
+    reference's `HPDDMCustomLocalSolver` tier): a factorized H-matrix copy
+    (HODLR Woodbury chain, or the dense LU when the hierarchical build fell
+    back) applied in the subdomain's dof order, which is the H-matrix's
+    user order, or its internal order for partition-diagonal block-Jacobi
+    subdomains."""
+
+    def __init__(self, h, internal_ordering: bool):
+        self.hmatrix = h
+        self.dtype = h.dtype
+        self.kind = h._factorization[0]
+        # (perm_in, inv_perm_out) of a solve in user order, as lu_solve
+        # maps a root H-matrix's right-hand side
+        self.perm = (None if internal_ordering or not h.is_root()
+                     else h._device_perms("T"))
+
+    def solve(self, b2d):
+        """x (m, k) with A_local x = b2d, both tensors on the device; the
+        HODLR chain without refinement sweeps, as the reference's tier."""
+        if self.perm is not None:
+            b2d = b2d[self.perm[0]]
+        if self.kind == "hodlr":
+            x = hodlr_solve(self.hmatrix._factorization[1], b2d)
+        else:
+            x = _solve_internal(self.hmatrix, "N", b2d)
+        return x if self.perm is None else x[self.perm[1]]
+
+
 class DDMSolver:
     """The reference's `Solver`: facto_one_level / build_coarse_space /
     solve / set_hpddm_args / get_information."""
@@ -95,8 +127,9 @@ class DDMSolver:
         self.distributed_operator = distributed_operator
         self.subdomains = subdomains
         self.options = dict(DEFAULTS)
-        self._facto = None  # (kind, solver tensors, idx_pad, mp)
+        self._facto = None  # dense tier: (kind, solver tensors, idx_pad, mp)
         self._weights = None  # {'ras': (P, mp), 'asm': (P, mp)} tensors
+        self._hier = []  # hierarchical tier: one dict per subdomain
         self._info = {}
 
     # ------------------------------------------------------------------
@@ -104,27 +137,50 @@ class DDMSolver:
         parse_hpddm_args(args, into=self.options)
 
     def facto_one_level(self) -> None:
-        """Factorize every subdomain's local matrix (the dense tier): the
-        padded (P, mp, mp) batch is built on the device, LU-factorized in
-        one batched call and, with ddm_dense_apply 'invert', inverted once
-        (then each application is one batched GEMM)."""
+        """Factorize every subdomain's local matrix, in two tiers:
+
+        * dense: subdomains of at most config.ddm_local_dense_max dofs, or
+          with an explicit dense matrix; the padded (P, mp, mp) batch is
+          built on the device, LU-factorized in one batched call and, with
+          ddm_dense_apply 'invert', inverted once (then each application
+          is one batched GEMM);
+        * hierarchical: larger H-matrix subdomains keep their compressed
+          form; a deep copy of each is factorized by lu_factorization
+          (HODLR above config.hodlr_threshold), so no dense (m, m)
+          subdomain matrix is formed."""
+        import copy
+
         cfg = get_config()
         if cfg.ddm_dense_apply not in ("invert", "solve"):
             raise ValueError("ddm_dense_apply must be 'invert' or 'solve', "
                              f"got {cfg.ddm_dense_apply!r}")
-        too_large = [p for p, s in enumerate(self.subdomains)
-                     if s.local_matrix is None
-                     and s.size > cfg.ddm_local_dense_max]
-        if too_large:
-            raise NotImplementedError(
-                f"subdomains {too_large} hold "
-                f"{[self.subdomains[p].size for p in too_large]} dofs: "
-                + _HIER_TIER)
         device = self.distributed_operator.device
         if device.type == "cuda":
             require_full_f32()
+        dense_ids = [p for p, s in enumerate(self.subdomains)
+                     if s.local_hmatrix is None or s.local_matrix is not None
+                     or s.size <= cfg.ddm_local_dense_max]
+        self._facto, self._weights = None, None
+        if dense_ids:
+            self._facto_dense([self.subdomains[p] for p in dense_ids], device)
+        self._hier = []
+        for p, s in enumerate(self.subdomains):
+            if p in dense_ids:
+                continue
+            h = copy.deepcopy(s.local_hmatrix)
+            h.lu_factorization()
+            rdtype = torch.empty((), dtype=h.dtype).real.dtype
+            self._hier.append({
+                "solver": _HierLocalSolver(h, s.internal_ordering),
+                "idx": torch.as_tensor(s.ovr_to_global, device=device),
+                "ras": torch.as_tensor(s.partition_of_unity(), dtype=rdtype,
+                                       device=device),
+                "asm": torch.ones(s.size, dtype=rdtype, device=device)})
+
+    def _facto_dense(self, subs, device):
+        """The dense tier over the subdomains `subs`."""
+        cfg = get_config()
         n = self.distributed_operator.shape[1]
-        subs = self.subdomains
         P = len(subs)
         mp = max(s.size for s in subs)
         dtype = subs[0].dtype
@@ -156,21 +212,32 @@ class DDMSolver:
 
     # ------------------------------------------------------------------
     def _one_level_device(self, r2d, method: str):
-        """ASM / RAS application: r2d (n, k) tensor in user numbering ->
-        (n, k).  Gather -> batched solve -> weighted scatter-add."""
-        kind, solver_data, idx_pad, _ = self._facto
+        """ASM / RAS application over both tiers: r2d (n, k) tensor in
+        user numbering -> (n, k).  Dense tier: gather -> batched solve ->
+        weighted scatter-add; hierarchical tier: per subdomain gather ->
+        HODLR solve -> weighted scatter-add."""
         n, k = r2d.shape
-        dtype = torch.promote_types(r2d.dtype, solver_data[0].dtype)
-        r_ext = torch.cat([r2d, torch.zeros((1, k), dtype=r2d.dtype,
-                                            device=r2d.device)]).to(dtype)
-        X = r_ext[idx_pad]  # (P, mp, k)
-        if kind == "inv":
-            Z = torch.bmm(solver_data[0], X)
-        else:
-            Z = torch.linalg.lu_solve(*solver_data, X)
-        Z = Z * self._weights[method][:, :, None]
+        dtype = r2d.dtype
+        if self._facto is not None:
+            dtype = torch.promote_types(dtype, self._facto[1][0].dtype)
+        for hs in self._hier:
+            dtype = torch.promote_types(dtype, hs["solver"].dtype)
         out = torch.zeros((n + 1, k), dtype=dtype, device=r2d.device)
-        out.index_add_(0, idx_pad.reshape(-1), Z.reshape(-1, k))
+        if self._facto is not None:
+            kind, solver_data, idx_pad, _ = self._facto
+            r_ext = torch.cat([r2d, torch.zeros((1, k), dtype=r2d.dtype,
+                                                device=r2d.device)])
+            X = r_ext[idx_pad].to(torch.promote_types(
+                r2d.dtype, solver_data[0].dtype))  # (P, mp, k)
+            if kind == "inv":
+                Z = torch.bmm(solver_data[0], X)
+            else:
+                Z = torch.linalg.lu_solve(*solver_data, X)
+            Z = Z * self._weights[method][:, :, None]
+            out.index_add_(0, idx_pad.reshape(-1), Z.reshape(-1, k).to(dtype))
+        for hs in self._hier:
+            z = hs["solver"].solve(r2d[hs["idx"]]) * hs[method][:, None]
+            out.index_add_(0, hs["idx"], z.to(dtype))
         return out[:n]
 
     def _device_preconditioner(self):
@@ -179,7 +246,8 @@ class DDMSolver:
         coarse = self.options.get("schwarz_coarse_correction", "none")
         if coarse != "none":
             raise NotImplementedError(_GENEO)
-        if method not in ("asm", "ras") or self._facto is None:
+        if method not in ("asm", "ras") or (self._facto is None
+                                            and not self._hier):
             return None
         return lambda r2d: self._one_level_device(r2d, method).to(r2d.dtype)
 
@@ -239,6 +307,8 @@ class DDMSolver:
             M_fn = self._device_preconditioner()
             sub_dtypes = ([_numpy_dtype(self._facto[1][0].dtype)]
                           if self._facto is not None else [])
+            sub_dtypes += [_numpy_dtype(hs["solver"].dtype)
+                           for hs in self._hier]
             dtype = np.result_type(A._result_dtype(b_arr.reshape(len(b_arr),
                                                                  -1)),
                                    *sub_dtypes)

@@ -7,9 +7,10 @@ DDMWithHMatrixPlusOverlap(Dense), DDMWithHMatrix(Dense)), Schwarz
 none / asm / ras, mu in {1, 10}, P in {1, 2, 4}, right and left variants:
 GMRES converges to 1e-6 and the solution is within 10 eps of sol.bin.  On
 the reference's own operator (its block rows carried over with `interop`)
-the iteration counts equal the reference solver's.  What is not ported
-raises: the hierarchical local solver (ROADMAP item 13), GenEO (item 16),
-an unknown -hpddm_ option.
+the iteration counts equal the reference solver's, with the dense tier
+and with the hierarchical tier (subdomains above `ddm_local_dense_max`
+factorized by HODLR; thresholds lowered in both packages).  What is not
+ported raises: GenEO (ROADMAP item 16), an unknown -hpddm_ option.
 """
 
 import copy
@@ -26,6 +27,7 @@ from htool_python_torch.config import get_config
 from htool_python_torch.parallel.builders import PerPartition, \
     _extract_block_diagonal
 from htool_python_torch.solvers import options
+from htool_python_tpu.config import get_config as ref_config
 from htool_python_tpu.solvers import options as ref_options
 from test_torch_complex import one_thread  # noqa: F401
 
@@ -181,6 +183,105 @@ def test_iterations_equal_reference_on_its_operator(load_data_solver,
     assert np.linalg.norm(x - x_ref) <= 1e-10 * np.linalg.norm(x_ref)
 
 
+# the hierarchical tier at the golden size: every subdomain (100 or 200
+# dofs) above ddm_local_dense_max and hodlr_threshold, HODLR leaves of at
+# most 32 and probe batches as wide as any block (k = m), so both packages'
+# randomized range capture is exact and their local solvers agree to
+# round-off
+_HIER_KNOBS = {"ddm_local_dense_max": 64, "hodlr_threshold": 64,
+               "hodlr_leaf_size": 32, "hodlr_sample_size": 256}
+
+
+@pytest.fixture
+def hierarchical_tier():
+    saved = [(cfg, {k: getattr(cfg, k) for k in _HIER_KNOBS})
+             for cfg in (get_config(), ref_config())]
+    for cfg, _ in saved:
+        for k, v in _HIER_KNOBS.items():
+            setattr(cfg, k, v)
+    yield
+    for cfg, old in saved:
+        for k, v in old.items():
+            setattr(cfg, k, v)
+
+
+@pytest.mark.parametrize("mu", [1])
+@pytest.mark.parametrize("symmetry,schwarz,n_partitions",
+                         [("S", "asm", 2), ("N", "ras", 4)])
+def test_hierarchical_tier_iterations_equal_reference(
+        load_data_solver, golden_data_root, hierarchical_tier, mu, symmetry,
+        schwarz, n_partitions):
+    [A, _, f, _, ref_cluster, _, _, symmetry, UPLO, _, _, _] = \
+        load_data_solver
+    ref = H.DefaultApproximationBuilder(
+        GeneratorFromMatrix(A), ref_cluster, ref_cluster,
+        H.HMatrixTreeBuilder(_EPS, 10, symmetry, UPLO), None)
+    ref_builder = H.DDMSolverBuilder(ref.distributed_operator,
+                                     copy.deepcopy(ref.block_diagonal_hmatrix))
+    x_ref = _solve(ref_builder.solver, f, symmetry, schwarz)
+    assert [h["solver"].kind for h in ref_builder.solver._hier] == (
+        ["hodlr"] * n_partitions)
+
+    cluster = _port_cluster(golden_data_root, symmetry, n_partitions)
+    op = interop.distributed_from_reference(
+        cluster, cluster,
+        [(h.plan, jax.tree_util.tree_map(np.asarray, h._data), h._lr_ranks,
+          h.epsilon) for h in ref.hmatrix], "cpu")
+    diag = PerPartition(_extract_block_diagonal(
+        op._global_to_local[p][0].hmatrix, cluster, cluster, p)
+        for p in range(n_partitions))
+    builder = T.DDMSolverBuilder(op, diag)
+    x = _solve(builder.solver, f, symmetry, schwarz)
+    solver = builder.solver
+    assert solver._facto is None
+    assert [h["solver"].kind for h in solver._hier] == ["hodlr"] * n_partitions
+    assert all(s.local_matrix is None for s in solver.subdomains)
+    assert (solver.get_information()["Nb_it"]
+            == ref_builder.solver.get_information()["Nb_it"])
+    assert np.linalg.norm(x - x_ref) <= 1e-8 * np.linalg.norm(x_ref)
+
+
+@pytest.mark.parametrize("mu,symmetry,n_partitions", [(1, "N", 4)])
+def test_mixed_tiers_in_user_order(load_data_solver, golden_data_root, mu,
+                                   symmetry, n_partitions):
+    """Overlapping subdomains re-clustered as root H-matrices (the local
+    H-matrix's user order is the subdomain's dof order, so the HODLR solve
+    goes through its cluster permutation) of 181, 246, 254 and 177 dofs:
+    with ddm_local_dense_max 200 two are dense and two hierarchical, and
+    the solve meets tol with the iterations of the all-dense tier."""
+    [A, x_ref, f, geometry, _, neighbors, intersections, symmetry, UPLO,
+     cluster_to_ovr, ovr_to_global, _] = load_data_solver
+    cluster = _port_cluster(golden_data_root, symmetry, n_partitions)
+    generator = PortMatrixGenerator(A)
+    approx = T.DefaultApproximationBuilder(
+        generator, cluster, cluster,
+        T.HMatrixTreeBuilder(_EPS, 10, symmetry, UPLO, device="cpu"))
+    builder = _builder("DDMWithHMatrix", approx, generator, symmetry, UPLO,
+                       ovr_to_global, cluster_to_ovr, neighbors,
+                       intersections, geometry)
+    solver = builder.solver
+    x_dense = _solve(solver, f, symmetry, "asm")
+    its = int(solver.get_information()["Nb_it"])
+    cfg = get_config()
+    saved = (cfg.ddm_local_dense_max, cfg.hodlr_threshold,
+             cfg.hodlr_leaf_size)
+    cfg.ddm_local_dense_max, cfg.hodlr_threshold, cfg.hodlr_leaf_size = (
+        200, 128, 32)
+    try:
+        x = _solve(solver, f, symmetry, "asm")
+    finally:
+        (cfg.ddm_local_dense_max, cfg.hodlr_threshold,
+         cfg.hodlr_leaf_size) = saved
+    assert solver._facto[3] == 181  # the dense batch: 181 and 177 dofs
+    assert [h["solver"].kind for h in solver._hier] == ["hodlr", "hodlr"]
+    assert all(h["solver"].perm is not None for h in solver._hier)
+    op = approx.distributed_operator
+    assert np.linalg.norm(op * x - f) / np.linalg.norm(f) < _TOL
+    assert np.linalg.norm(x - x_ref) / np.linalg.norm(x_ref) < 10 * _EPS
+    assert abs(int(solver.get_information()["Nb_it"]) - its) <= 1
+    assert np.linalg.norm(x - x_dense) <= 1e-5 * np.linalg.norm(x_dense)
+
+
 class _Rows(T.RestrictedGlobalToLocalOperator):
     """A custom Python operator: one partition's rows of a dense matrix."""
 
@@ -252,10 +353,19 @@ def test_what_is_not_ported_raises(load_data_solver, golden_data_root, mu,
     limit = cfg.ddm_local_dense_max
     cfg.ddm_local_dense_max = 100  # the subdomains hold 200 dofs
     try:
-        with pytest.raises(NotImplementedError, match="item 13"):
-            solver.facto_one_level()
+        # once NotImplementedError (item 13); now the hierarchical tier: an
+        # LU of each subdomain's H-matrix copy (200 dofs: below
+        # hodlr_threshold), the same preconditioner as the dense tier's
+        x_hier = _solve(solver, f, symmetry, "asm")
     finally:
         cfg.ddm_local_dense_max = limit
+    assert solver._facto is None
+    assert [h["solver"].kind for h in solver._hier] == ["lu"] * n_partitions
+    its = solver.get_information()["Nb_it"]
+    x_dense = _solve(solver, f, symmetry, "asm")
+    assert solver._facto is not None and solver._hier == []
+    assert solver.get_information()["Nb_it"] == its
+    assert np.linalg.norm(x_hier - x_dense) <= 1e-10 * np.linalg.norm(x_dense)
     with pytest.raises(NotImplementedError, match="item 16"):
         solver.build_coarse_space([], None)
     solver.facto_one_level()

@@ -1,6 +1,7 @@
 """Kernels K1 and K2 against their plain version on the card, in each
-launch structure, and a DDM solve on the golden data (skips without a
-card).
+launch structure, K1-al on the aligned low-rank layout, the HODLR
+factorization through K1 and K1-al, and a DDM solve on the golden data
+(skips without a card).
 
 Run on a machine with a CUDA device:
     python -m pytest --noconftest tests/test_torch_gpu.py
@@ -342,3 +343,97 @@ def test_golden_ddm_solve_on_the_card(cuda_device, symmetry, schwarz):
         "fused")] > before
     err = np.linalg.norm(x - sol) / np.linalg.norm(sol)
     assert err < 10 * eps, (err, info)
+
+
+def _f32_operators(device, n=3000):
+    points = np.random.RandomState(0).rand(3, n)
+    builder = T.ClusterTreeBuilder()
+    builder.set_maximal_leaf_size(64)
+    cluster = builder.create_cluster_tree(points, 2)
+    ops = {}
+    for symmetry, UPLO in (("N", "N"), ("S", "L"), ("S", "U")):
+        hb = T.HMatrixTreeBuilder(1e-3, 10.0, symmetry, UPLO, device=device)
+        hb.set_dtype(torch.float32)
+        ops[symmetry, UPLO] = hb.build(
+            T.KernelGenerator(inverse_distance_kernel(0.1), points, points,
+                              device=device), cluster, cluster)
+    return ops
+
+
+@pytest.mark.gpu
+def test_k1al_matches_plain_version(cuda_device):
+    """K1-al on the aligned low-rank layout (leaf-64 plans), every storage
+    case, against the plain version on the same data and on the canonical
+    layout; counted under its own name, one launch a product."""
+    from htool_python_torch.ops.matvec import ALIGN_LANE, align_lowrank
+
+    for (symmetry, UPLO), hm in _f32_operators(cuda_device).items():
+        L, n = hm._pad_len, hm.shape[0]
+        aligned = align_lowrank(hm._data, ALIGN_LANE)
+        table = cuda_matvec.BucketTable(aligned, hm.device)
+        assert table.aligned
+        for trans in ("N", "T"):
+            for k in (1, 2, 3, 4, 8, 11, 12, 128):
+                g = torch.Generator(cuda_device).manual_seed(k)
+                x = torch.zeros((L, k), device=cuda_device)
+                x[:n] = torch.rand((n, k), device=cuda_device, generator=g)
+                before = cuda_matvec.LAUNCH_COUNTS[cuda_matvec.ALIGNED_NAME]
+                y = cuda_matvec.apply_hmatrix_cuda(aligned, x, L, trans,
+                                                   symmetry, table)
+                torch.cuda.synchronize()
+                assert (cuda_matvec.LAUNCH_COUNTS[cuda_matvec.ALIGNED_NAME]
+                        == before + 1)
+                for data in (aligned, hm._data):
+                    y_plain = apply_hmatrix_padded(data, x, L, trans,
+                                                   symmetry)
+                    err = (y - y_plain).abs().max() / y_plain.abs().max()
+                    assert err <= 1e-5, (symmetry, UPLO, trans, k, float(err))
+
+
+@pytest.mark.gpu
+def test_hodlr_factorization_on_the_card(cuda_device):
+    """lu_factorization / cholesky_factorization above a lowered
+    hodlr_threshold, through K1 and with the aligned layout through K1-al:
+    HODLR, no dense fallback, and solves within eps."""
+    import copy
+
+    from htool_python_torch.models.kernels import second_kind_kernel
+
+    n, eps = 6000, 1e-3
+    points = create_random_points_on_sphere(n, np.random.RandomState(11))
+    builder = T.ClusterTreeBuilder()
+    builder.set_maximal_leaf_size(64)
+    cluster = builder.create_cluster_tree(points, 2)
+    hb = T.HMatrixTreeBuilder(eps, 10.0, "N", "N", device=cuda_device)
+    hb.set_dtype(torch.float32)
+    hm = hb.build(T.KernelGenerator(second_kind_kernel(0.5, 0.5 * n), points,
+                                    points, device=cuda_device),
+                  cluster, cluster)
+    x_ref = np.random.RandomState(2).rand(n).astype(np.float32)
+    b = hm * x_ref
+    cfg = get_config()
+    saved = cfg.hodlr_threshold
+    cfg.hodlr_threshold = 2048
+    try:
+        for aligned in (False, True):
+            cfg.matvec_aligned_layout = aligned
+            for kind in ("lu", "cholesky"):
+                cuda_matvec.reset_launch_counts()
+                fac = copy.deepcopy(hm)
+                if kind == "lu":
+                    fac.lu_factorization()
+                    x = fac.lu_solve("N", b)
+                else:
+                    fac.cholesky_factorization("L")
+                    x = fac.cholesky_solve("L", b)
+                assert fac._factorization[0] == "hodlr"
+                counts = cuda_matvec.LAUNCH_COUNTS
+                assert (counts[cuda_matvec.ALIGNED_NAME] > 0) == aligned
+                assert (counts[cuda_matvec.KERNEL_NAME] > 0) != aligned
+                assert (np.linalg.norm(hm * x - b)
+                        < eps * np.linalg.norm(b))
+                assert (np.linalg.norm(x - x_ref)
+                        < 10 * eps * np.linalg.norm(x_ref))
+    finally:
+        cfg.hodlr_threshold = saved
+        cfg.matvec_aligned_layout = False

@@ -11,6 +11,7 @@ reference package).
 """
 
 import ast
+import copy
 import pathlib
 import subprocess
 import sys
@@ -170,10 +171,20 @@ def test_unported_hooks_raise():
     cluster = T.ClusterTreeBuilder().create_cluster_tree(points, 2)
     hm = hb.build(T.KernelGenerator(pk(0.1), points, points, device="cpu"),
                   cluster, cluster)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        hm.lu_factorization()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        hm.cholesky_factorization()
+    # the factorizations raised NotImplementedError until they were ported
+    # (hmatrix/factorization.py); now they factorize in place and solve
+    x_true = np.random.RandomState(1).rand(60)
+    b = hm * x_true
+    lu = copy.deepcopy(hm)
+    lu.lu_factorization()
+    assert lu._factorization[0] == "lu"  # 60 dofs: the dense path
+    x = lu.lu_solve("N", b)
+    assert np.linalg.norm(x - x_true) < 1e-6 * np.linalg.norm(x_true)
+    assert hm._factorization is None
+    hm.cholesky_factorization()
+    assert hm._factorization[0] == "cholesky"
+    assert np.linalg.norm(hm * hm.cholesky_solve("L", b) - b) < (
+        1e-6 * np.linalg.norm(b))
 
 
 def _port_sources():
