@@ -17,9 +17,29 @@ Phases, in this order, one line each (`phase <name> {json}`):
                 -> HMatrix.matvec / @ in user numbering (k = 1 and 8), with
                 kernel launches counted around the products and the sampled
                 error against the dense oracle (<= 1e-3);
+  profiling:    the kernel-profiling path (python -m
+                htool_python_torch.profiling) at the reference's sizes:
+                P1 over its 7 buffer cases (384 MiB each), P2 over its 11
+                block shapes (about 384 MiB each), the P4 gather probe, P3's
+                six variants on the low-rank and the dense bucket (384 MiB
+                each, L = 40960) and K1 on the same buckets, each timed by a
+                device-resident chain (ms, GB/s, bound), with P1-P4's
+                launches counted around it;
+  profiling_check: P1-P4 against their plain versions on inputs drawn on
+                the card at those shapes (every P1 and P2 case, P3's six
+                variants and K1 on both buckets, P4 at the probe's shapes
+                and on random indices), one line per case with its error,
+                ms, plain ms, library ms (torch.sum(buf, 0) per buffer,
+                A.sum(), torch.gather; none for P3) and bound: P1 within
+                1e-5 relative, P2 within 1e-5 of 1e-30 sum|A|, P3 within
+                1e-5 relative plus, for 'xgemm', the TF32 bound of
+                csrc/bucket_variants.cu, K1 within 1e-5 of 'base', P4
+                exact;
   product_time: product ms for k = 1 and 8 from a device-resident chain,
                 effective GB/s over the stored bytes, a device-to-device
-                copy rate and the bound; the chain and the host ms of one
+                copy rate, P1's best read rate of `profiling`, the
+                product's fraction of each, and the bound; the chain and
+                the host ms of one
                 call again with K1's bucket table built on every call
                 instead of once per operator;
   k1_check:     kernel K1 against its plain version on the card, for
@@ -165,21 +185,6 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(torch, fn, reps, warmup=3):
-    """Mean ms per call of fn over `reps` calls, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
 def device_profile(torch, fn, reps=10, top=6):
     """The device activity (kernels, copies, fills) that torch.profiler
     records over `reps` calls of fn after one warm-up call, per call: its
@@ -212,9 +217,11 @@ def device_profile(torch, fn, reps=10, top=6):
 
 def copy_rate_gbs(torch, device, nbytes=1 << 30):
     """Device-to-device copy rate (bytes read + written per second)."""
+    from htool_python_torch.profiling.timing import cuda_ms
+
     src = torch.rand(nbytes // 4, device=device)
     dst = torch.empty_like(src)
-    ms = cuda_ms(torch, lambda: dst.copy_(src), reps=20)
+    ms = cuda_ms(lambda: dst.copy_(src), reps=20)
     return 2 * nbytes / (ms * 1e-3) / 1e9
 
 
@@ -396,6 +403,7 @@ def kernel_cases(torch, operators, phase, dtype, transes, ks=(1, 4, 8),
     from htool_python_torch.config import get_config
     from htool_python_torch.ops.cuda_matvec import MODES, apply_hmatrix_cuda
     from htool_python_torch.ops.matvec import apply_hmatrix_padded
+    from htool_python_torch.profiling.timing import cuda_ms
 
     cfg = get_config()
     results = []
@@ -409,7 +417,7 @@ def kernel_cases(torch, operators, phase, dtype, transes, ks=(1, 4, 8),
                 x[:n] = torch.rand((n, k), dtype=dtype, device=hm.device,
                                    generator=g)
                 y_plain = apply_hmatrix_padded(data, x, L, trans, symmetry)
-                plain_ms = cuda_ms(torch, lambda: apply_hmatrix_padded(
+                plain_ms = cuda_ms(lambda: apply_hmatrix_padded(
                     data, x, L, trans, symmetry), reps=plain_reps, warmup=1)
                 for mode in MODES:
                     cfg.matvec_kernel_mode = mode
@@ -417,7 +425,7 @@ def kernel_cases(torch, operators, phase, dtype, transes, ks=(1, 4, 8),
                         y = apply_hmatrix_cuda(data, x, L, trans, symmetry,
                                                table)
                         torch.cuda.synchronize()
-                        ms = cuda_ms(torch, lambda: apply_hmatrix_cuda(
+                        ms = cuda_ms(lambda: apply_hmatrix_cuda(
                             data, x, L, trans, symmetry, table), reps=reps)
                     finally:
                         cfg.matvec_kernel_mode = "fused"
@@ -892,6 +900,7 @@ def k1al_cases(torch, operators, label, ks=K1AL_KS, reps=20):
     from htool_python_torch.ops.matvec import (ALIGN_LANE, align_lowrank,
                                                apply_hmatrix_padded,
                                                stored_bytes)
+    from htool_python_torch.profiling.timing import cuda_ms
 
     results = []
     for (symmetry, UPLO), hm in operators.items():
@@ -917,11 +926,11 @@ def k1al_cases(torch, operators, label, ks=K1AL_KS, reps=20):
                                                         != "N" else ""),
                     N=n, trans=trans, k=k, max_rel_err=rel,
                     max_abs_err=abs_err,
-                    ms=cuda_ms(torch, lambda: apply_hmatrix_cuda(
+                    ms=cuda_ms(lambda: apply_hmatrix_cuda(
                         aligned, x, L, trans, symmetry, table_al), reps=reps),
-                    k1_ms=cuda_ms(torch, lambda: apply_hmatrix_cuda(
+                    k1_ms=cuda_ms(lambda: apply_hmatrix_cuda(
                         data, x, L, trans, symmetry, table), reps=reps),
-                    plain_ms=cuda_ms(torch, lambda: apply_hmatrix_padded(
+                    plain_ms=cuda_ms(lambda: apply_hmatrix_padded(
                         aligned, x, L, trans, symmetry), reps=2, warmup=1),
                     bound_ms=bound, bound_by=bound_by,
                     aligned_bound_ms=product_bound(aligned, L, k)[0],
@@ -972,6 +981,7 @@ def hlu(T, torch, n, device, counts):
 
     from htool_python_torch.config import get_config
     from htool_python_torch.ops import cuda_matvec
+    from htool_python_torch.profiling.timing import cuda_ms
 
     rng = np.random.RandomState(11)
     hm, t_asm = second_kind_operator(T, torch, n, rng, 0.5 * n, HLU_EPS, "N",
@@ -1007,7 +1017,7 @@ def hlu(T, torch, n, device, counts):
             x = solve(b)
             launches = {key: v for key, v in cuda_matvec.LAUNCH_COUNTS.items()
                         if v}
-            solve_ms = cuda_ms(torch, lambda: solve(b_dev), reps=5, warmup=1)
+            solve_ms = cuda_ms(lambda: solve(b_dev), reps=5, warmup=1)
             solve_profile = device_profile(torch, lambda: solve(b_dev),
                                            reps=3)
             peak = torch.cuda.max_memory_allocated() / 1e9
@@ -1171,6 +1181,258 @@ def ddm_hier(T, torch, n, device, counts):
     return cases
 
 
+def profiling(torch, device, counts, smi):
+    """The profiling path (python -m htool_python_torch.profiling) at the
+    reference's sizes, with P1-P4's launches counted around it; returns its
+    result."""
+    from htool_python_torch.profiling import bucket_variants, stream
+    from htool_python_torch.profiling.__main__ import failures, run_profile
+
+    stream.reset_launch_counts()
+    bucket_variants.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = run_profile(device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts.update(stream.LAUNCH_COUNTS)
+    counts.update(bucket_variants.LAUNCH_COUNTS)
+    emit("profiling", card=smi, wall_s=seconds, launches=dict(counts),
+         **result)
+    check(not failures(result), f"profiling: {failures(result)} failed")
+    return result
+
+
+def _timed_case(run, plain, library=None, reps=20, plain_reps=5):
+    """ms of a kernel's wrapper, of its plain version and of the library
+    yardstick (None without one), by CUDA events on the same inputs."""
+    from htool_python_torch.profiling.timing import cuda_ms
+
+    return dict(ms=cuda_ms(run, reps=reps),
+                plain_ms=cuda_ms(plain, reps=plain_reps, warmup=1),
+                library_ms=None if library is None else cuda_ms(library,
+                                                                reps=reps))
+
+
+def tf32_check(args, diff, y_plain, tol):
+    """For a TF32 'xgemm' variant of P3: the largest error in standard
+    deviations of `tf32_error_std`, and that its tolerance rejects a zero
+    output and the output with the first group of G blocks left out."""
+    from htool_python_torch.profiling import bucket_variants as bv
+
+    kind, gather, term, accum, slabs, (t_off, s_off), x, L, G = args[:9]
+    sd = bv.tf32_error_std(kind, gather, accum, slabs, (t_off, s_off), x,
+                           L, G, *args[9:])
+    group = bv.bucket_variant_plain(kind, gather, term, accum, slabs[:G],
+                                    (t_off[:G], s_off[:G]), x, L, G,
+                                    *args[9:])
+    # leaving the group out moves the output by the group's own output
+    return dict(tf32_sigmas=float((diff / sd)[sd > 0].max()),
+                rejects_zero=bool((y_plain.abs() > tol).any()),
+                rejects_dropped_group=bool((group.abs() > tol).any()))
+
+
+def sink_case(torch, kind, gather, term, offs, x, L, G, r, pt, ps):
+    """A P3 variant with accum 'skip' (y stays 0) on positive slabs, so that
+    its per-CTA sums do not cancel: y == 0, and the sums against the plain
+    version's and against their float64 value, G pt 1e-30 sum(the group's
+    slab) for the 'stream' variant, each to 1e-5 relative."""
+    from htool_python_torch.profiling import bucket_variants as bv
+
+    nb = offs[0].shape[0]
+    g = torch.Generator(x.device).manual_seed(6)
+    slabs = torch.rand((nb, bv.slab_rows(kind, r, pt), max(pt, ps)),
+                       device=x.device, generator=g)
+    args = (kind, gather, term, "skip", slabs, offs, x, L, G, r, pt, ps)
+    y, sink = bv.bucket_variant(*args, return_sink=True)
+    y_plain, sink_plain = bv.bucket_variant_plain(*args, return_sink=True)
+    fields = dict(y_zero=not (y.any() or y_plain.any()))
+    err = float((sink - sink_plain).abs().max())
+    fields.update(max_abs_err=err,
+                  max_rel_err=err / float(sink_plain.abs().max()))
+    if (gather, term) == ("none", "skip"):
+        exact = slabs.double().reshape(nb // G, -1).sum(1) * (G * pt * 1e-30)
+        fields["sink_err_of_exact"] = float(
+            ((sink.double() - exact).abs() / exact).max())
+    check(fields["y_zero"] and fields["max_rel_err"] <= KERNEL_TOL
+          and fields.get("sink_err_of_exact", 0.0) <= KERNEL_TOL,
+          f"P3 ({kind}, {gather}, {term}, skip) disagrees with its plain "
+          f"version: {fields}")
+    fields.update(_timed_case(lambda: bv.bucket_variant(*args),
+                              lambda: bv.bucket_variant_plain(*args)))
+    return fields
+
+
+def profiling_checks(torch, device):
+    """P1-P4 against their plain versions on the card at the profiling
+    path's shapes, on inputs drawn on the card: every P1 case, P2 once for
+    each width of its cases (the kernel sees nothing else of the shape),
+    P3's six variants on both buckets with K1 on the same bucket, P4 at the
+    probe's shapes and on random indices.  One `profiling_check` line per
+    case with its error, ms, plain ms, library ms and bound; fails above the
+    kernels' tolerances (P1 and P2: 1e-5 relative, on positive entries; P3:
+    `kernel_tolerance`, 1e-5 relative plus 8 standard deviations of the
+    TF32 error for 'xgemm', which must reject a zero output and one group
+    left out; 'stream' on its per-CTA sums; P4: exact).  These launches are
+    checks, not the profiling path's."""
+    from htool_python_torch.ops.cuda_matvec import (BucketTable,
+                                                    apply_hmatrix_cuda)
+    from htool_python_torch.ops.matvec import apply_hmatrix_padded
+    from htool_python_torch.profiling import bucket_variants as bv
+    from htool_python_torch.profiling import stream
+    from htool_python_torch.profiling.__main__ import take_probe
+
+    g = torch.Generator(device).manual_seed(5)
+    cases = {"P1": {}, "P2": {}, "P3": {}, "P4": {}}
+
+    def record(kind, name, **fields):
+        emit("profiling_check", kernel=kind, case=name, **fields)
+        cases[kind][name] = fields
+
+    x = torch.rand((1, stream.OUT_COLS), device=device, generator=g)
+    for step_mb, n_buf in stream.STREAM_CASES:
+        rows, _ = stream.stream_rows(step_mb, n_buf)
+        bufs = [torch.rand((rows, stream.WIDTH), device=device, generator=g)
+                for _ in range(n_buf)]
+        y = stream.stream_probe(bufs, x, step_mb)
+        y_plain = stream.stream_probe_plain(bufs, x, step_mb)
+        err = float((y - y_plain).abs().max())
+        nbytes = sum(b.numel() * 4 for b in bufs) + 2 * x.numel() * 4
+        record("P1", f"s{step_mb}MB_b{n_buf}", max_abs_err=err,
+               max_rel_err=err / float(y_plain.abs().max()),
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, **_timed_case(
+                   lambda: stream.stream_probe(bufs, x, step_mb),
+                   lambda: stream.stream_probe_plain(bufs, x, step_mb),
+                   lambda: [torch.sum(b, 0) for b in bufs]))
+        check(cases["P1"][f"s{step_mb}MB_b{n_buf}"]["max_rel_err"]
+              <= KERNEL_TOL, f"P1 disagrees with its plain version at "
+              f"({step_mb}, {n_buf})")
+        del bufs
+    x = torch.zeros((1, 1), device=device)
+    runs_as = stream.launch_groups(stream.SHAPE_CASES)
+    for name, shape, G in stream.SHAPE_CASES:
+        if runs_as[name] != name:  # the kernel sees only the last dimension
+            continue
+        # positive entries, so that the sum does not cancel
+        A = torch.rand((stream.shape_blocks(shape, G),) + shape,
+                       device=device, generator=g)
+        o = stream.shape_stream(A, x, G)
+        o_plain = stream.shape_stream_plain(A, x, G)
+        err = float((o - o_plain).abs())
+        record("P2", name, max_abs_err=err,
+               max_rel_err=err / float(o_plain.abs()),
+               bound_ms=(A.numel() + 2) * 4 / HBM_BYTES_PER_S * 1e3,
+               **_timed_case(lambda: stream.shape_stream(A, x, G),
+                             lambda: stream.shape_stream_plain(A, x, G),
+                             lambda: A.sum()))
+        check(cases["P2"][name]["max_rel_err"] <= KERNEL_TOL,
+              f"P2 disagrees with its plain version on {name}")
+        del A
+    L = bv.LENGTH
+    for kind, r, pt, ps, G in bv.CASES:
+        nb, per = bv.case_blocks(kind, bv.TOTAL_MB, G, r, pt, ps)
+        slabs = torch.randn((nb, bv.slab_rows(kind, r, pt), max(pt, ps)),
+                            device=device, generator=g)
+        offs = tuple(torch.randint(0, L - w - 256, (nb,), device=device,
+                                   generator=g, dtype=torch.int32)
+                     for w in (pt, ps))
+        x = torch.randn((1, L), device=device, generator=g)
+        bound = (nb * per + 2 * 4 * L + 8 * nb) / HBM_BYTES_PER_S * 1e3
+        for name, gather, term, accum in bv.VARIANTS:
+            if accum == "skip":
+                record("P3", f"{kind}/{name}", bound_ms=bound, **sink_case(
+                    torch, kind, gather, term, offs, x, L, G, r, pt, ps))
+                continue
+            args = (kind, gather, term, accum, slabs, offs, x, L, G, r, pt,
+                    ps)
+            y = bv.bucket_variant(*args)
+            y_plain = bv.bucket_variant_plain(*args)
+            diff = (y - y_plain).abs()
+            tol = bv.kernel_tolerance(*args, y_plain)
+            fields = dict(within_tolerance=bool((diff <= tol).all()))
+            if term == "xgemm":
+                fields.update(tf32_check(args, diff, y_plain, tol))
+            record("P3", f"{kind}/{name}", max_abs_err=float(diff.max()),
+                   max_rel_err=float(diff.max() / max(
+                       float(y_plain.abs().max()), 1e-30)),
+                   bound_ms=bound, **fields, **_timed_case(
+                       lambda: bv.bucket_variant(*args),
+                       lambda: bv.bucket_variant_plain(*args)))
+            check(all(v for k, v in fields.items() if k != "tf32_sigmas"),
+                  f"P3 disagrees with its plain version on {kind}/{name}, "
+                  f"or its check would pass a wrong output: {fields}")
+        data = bv.k1_data(kind, slabs, offs, r, pt, ps)
+        table = BucketTable(data, slabs.device)
+        x_pad = x.reshape(L, 1)
+        y_k1 = apply_hmatrix_cuda(data, x_pad, L, "N", "N", table)
+        y_base = bv.bucket_variant(kind, "roll", "vpu", "roll", slabs, offs,
+                                   x, L, G, r, pt, ps)
+        err = float((y_k1.reshape(1, L) - y_base).abs().max())
+        record("P3", f"{kind}/k1", max_abs_err=err,
+               max_rel_err=err / float(y_base.abs().max()), bound_ms=bound,
+               **_timed_case(lambda: apply_hmatrix_cuda(
+                   data, x_pad, L, "N", "N", table),
+                   lambda: apply_hmatrix_padded(data, x_pad, L, "N", "N")))
+        check(cases["P3"][f"{kind}/k1"]["max_rel_err"] <= KERNEL_TOL,
+              f"K1 and the 'base' variant disagree on the {kind} bucket")
+        del slabs, data, table
+    _, (xp, probe) = take_probe(device)
+    xr = torch.rand((8, 1024), device=device, generator=g)
+    rand = torch.randint(0, 1024, (8, 256), device=device, generator=g,
+                         dtype=torch.int32)
+    for name, xx, idx in (("probe", xp, probe), ("random", xr, rand)):
+        out = bv.take_along_axis(xx, idx)
+        err = float((out - bv.take_along_axis_plain(xx, idx)).abs().max())
+        idx64 = idx.long()
+        nbytes = (xx.numel() + 2 * idx.numel()) * 4
+        record("P4", name, max_abs_err=err,
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, **_timed_case(
+                   lambda: bv.take_along_axis(xx, idx),
+                   lambda: bv.take_along_axis_plain(xx, idx),
+                   lambda: torch.gather(xx, 1, idx64), reps=100))
+        check(err == 0.0, f"P4 disagrees with its plain version ({name})")
+    return cases
+
+
+def profiling_entries(counts, checks, result):
+    """The `kernels` line's entries of P1-P4: the representative case's
+    numbers from `profiling_checks`, every case's ms beside them, and the
+    profiling path's chain times."""
+    pal = "tools/profile_matvec"
+
+    def entry(pid, name, source, replaces, case, bound_by="bytes"):
+        head = checks[pid][case]
+        return {"name": name, "id": pid, "route": "cuda",
+                "source": "htool_python_torch/csrc/" + source,
+                "replaces": replaces, "launches": counts[name],
+                "max_abs_err": max(c["max_abs_err"]
+                                   for c in checks[pid].values()),
+                "ms": head["ms"], "plain_ms": head["plain_ms"],
+                "bound_ms": head["bound_ms"], "bound_by": bound_by,
+                "library_ms": head["library_ms"], "case": case,
+                "ms_by_case": {k: c["ms"] for k, c in checks[pid].items()}}
+
+    return [
+        dict(entry("P1", "stream_probe", "stream_probe.cu",
+                   pal + "3.py:53 (make_stream; stream_kernel :37)",
+                   "s1MB_b1"),
+             chain_ms_by_case={k: v["ms"]
+                               for k, v in result["stream"].items()}),
+        dict(entry("P2", "shape_stream", "stream_probe.cu",
+                   pal + "9c.py:27 (stream; kernel :35)", "3d_16x640_G96"),
+             chain_ms_by_case={k: v["ms"]
+                               for k, v in result["shape"].items()
+                               if "ms" in v}),
+        dict(entry("P3", "bucket_variant", "bucket_variants.cu",
+                   pal + "5.py:225 (launch; make_kernel :144)", "lr/base"),
+             chain_ms_by_case={f"{kind}/{k}": v["ms"]
+                               for kind in ("lr", "dense")
+                               for k, v in result["bucket"][kind].items()
+                               if isinstance(v, dict)}),
+        entry("P4", "take_along_axis", "bucket_variants.cu",
+              pal + "5.py:288 (main; probe_kernel :301)", "probe")]
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=40000,
@@ -1218,13 +1480,22 @@ def main(argv=None) -> int:
          build_s=time.perf_counter() - t0, nvcc_s=built,
          ptxas={lib: [ln.strip() for ln in cuda_build.ptxas_report(lib)
                       .splitlines() if "registers" in ln or "spill" in ln]
-                for lib in (KERNEL_NAME, K2_NAME)},
+                for lib in cuda_build.SOURCES},
          svd_check=svd_check(torch, device))
 
     counts = {}
     hm = main_path(T, torch, args.n, args.seed, device, counts)
     check(counts.get(KERNEL_NAME, 0) > 0,
           "the main path never launched kernel K1")
+
+    prof_counts = {}
+    prof = profiling(torch, device, prof_counts, smi)
+    for pname in ("stream_probe", "shape_stream", "bucket_variant",
+                  "take_along_axis"):
+        check(prof_counts.get(pname, 0) > 0,
+              f"the profiling path never launched {pname}")
+    prof_checks = profiling_checks(torch, device)
+    stream_gbs = max(v["GBs"] for v in prof["stream"].values())
 
     data = hm._product_data()
     nbytes = stored_bytes(data)
@@ -1238,10 +1509,13 @@ def main(argv=None) -> int:
                          product_ms_table_per_call=chain_ms(
                              torch, hm, k, args.seed, prepared=False))
     emit("product_time", card=smi, stored_bytes=int(nbytes), copy_GBs=copy_gbs,
+         stream_GBs=stream_gbs,
          host_ms_per_call={"prepared_table": host_ms(torch, hm, True),
                            "table_per_call": host_ms(torch, hm, False)},
          product={f"k{k}": dict(v, fraction_of_copy_rate=v["effective_GBs"]
-                                / copy_gbs) for k, v in timing.items()})
+                                / copy_gbs,
+                                fraction_of_stream_rate=v["effective_GBs"]
+                                / stream_gbs) for k, v in timing.items()})
 
     pts_sym = create_random_points_in_sphere(
         args.n_sym, np.random.RandomState(args.seed + 1))
@@ -1362,6 +1636,7 @@ def main(argv=None) -> int:
         **{f"k1_ms_k{k}": al_case("hlu", k)["k1_ms"] for k in (1, 8, 128)},
         **{f"headline_{key}_k{k}": al_case("headline", k)[key]
            for k in (1, 8, 128) for key in ("ms", "k1_ms")}})
+    kernels += profiling_entries(prof_counts, prof_checks, prof)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,9 @@ BUILD_DIR = _PKG.parent / "build"
 
 # kernel library name -> source file under csrc/
 SOURCES = {"hmatrix_product": "hmatrix_product.cu",  # K1
-           "hmatrix_product_complex": "hmatrix_product_complex.cu"}  # K2
+           "hmatrix_product_complex": "hmatrix_product_complex.cu",  # K2
+           "stream_probe": "stream_probe.cu",  # P1, P2
+           "bucket_variants": "bucket_variants.cu"}  # P3, P4
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -1,14 +1,15 @@
 """Kernels K1 and K2 against their plain version on the card, in each
 launch structure, K1-al on the aligned low-rank layout, the HODLR
-factorization through K1 and K1-al, and a DDM solve on the golden data
-(skips without a card).
+factorization through K1 and K1-al, a DDM solve on the golden data, and
+the profiling path's kernels P1-P4 (skips without a card).
 
 Run on a machine with a CUDA device:
     python -m pytest --noconftest tests/test_torch_gpu.py
 (--noconftest: the suite's conftest imports JAX, which this file does not
 need and a GPU machine may lack.)
 The kernels add into y with f32 atomics in an order that changes from run
-to run, so they agree with the plain version to 1e-5 relative.
+to run, so they agree with the plain version to 1e-5 relative (P3's
+'xgemm' runs in TF32: `bucket_variants.kernel_tolerance`).
 """
 
 import pathlib
@@ -437,3 +438,112 @@ def test_hodlr_factorization_on_the_card(cuda_device):
     finally:
         cfg.hodlr_threshold = saved
         cfg.matvec_aligned_layout = False
+
+
+@pytest.mark.gpu
+def test_stream_probes_match_plain_version(cuda_device):
+    """P1 over buffer counts and tile sizes (first and last tiles weighted
+    by the reference's clipped index map), and P2 over block shapes (one
+    width that is not a whole number of warps of float4), against their
+    plain versions, each to 1e-5 relative (P2 on positive entries, so that
+    its sum does not cancel)."""
+    from htool_python_torch.profiling import stream
+
+    rng = np.random.RandomState(0)
+    x = torch.rand((1, stream.OUT_COLS), device=cuda_device)
+    for step_mb, n_buf in ((1, 1), (1, 4), (2, 3), (1, 24)):
+        arrays, _ = stream.make_stream(step_mb, n_buf, 24, rng=rng)
+        bufs = [torch.from_numpy(a).to(cuda_device) for a in arrays]
+        before = stream.LAUNCH_COUNTS[stream.P1_NAME]
+        got = stream.stream_probe(bufs, x, step_mb)
+        torch.cuda.synchronize()
+        assert stream.LAUNCH_COUNTS[stream.P1_NAME] == before + 1
+        want = stream.stream_probe_plain(bufs, x, step_mb)
+        err = (got - want).abs().max() / want.abs().max()
+        assert err <= 1e-5, (step_mb, n_buf, float(err))
+    x = torch.zeros((1, 1), device=cuda_device)
+    for shape, G in (((16, 640), 4), ((32, 256), 96), ((8192, 640), 1),
+                     ((7, 100), 3)):
+        A = torch.from_numpy(np.abs(stream.make_shape_case(
+            shape, G, 24 << 20, rng=np.random.default_rng(0)))).to(cuda_device)
+        got = stream.shape_stream(A, x, G)
+        want = stream.shape_stream_plain(A, x, G)
+        assert float((got - want).abs()) <= 1e-5 * float(want), (shape, G)
+
+
+@pytest.mark.gpu
+def test_bucket_variants_match_plain_version(cuda_device):
+    """P3 over the reference's six variants and the other choices of
+    gather, term and accumulation, on the low-rank and the dense bucket of
+    the reference's --cpu size (4 MiB, L = 40960), with two segments moved
+    past the ends of x and y; with accum 'skip', y = 0 and the per-CTA sums
+    of positive data to 1e-5 relative; K1 on the same bucket equals
+    'base'."""
+    from htool_python_torch.profiling import bucket_variants as bv
+
+    rng = np.random.default_rng(0)
+    L = bv.LENGTH
+    combos = [v[1:] for v in bv.VARIANTS] + [
+        ("take", "vpu", "roll"), ("none", "vpu", "static"),
+        ("roll", "skip", "roll"), ("take", "skip", "static"),
+        ("none", "xgemm", "skip"), ("roll", "vpu", "skip")]
+    for kind, r, pt, ps, G in bv.CASES:
+        slabs, (t_off, s_off), _ = bv.build_case(kind, 4, L, G, r, pt, ps,
+                                                 rng)
+        s_off[0], t_off[1] = L - 100, -50
+        x = torch.from_numpy(rng.standard_normal((1, L)).astype(
+            np.float32)).to(cuda_device)
+        slabs = torch.from_numpy(slabs).to(cuda_device)
+        offs = (torch.from_numpy(t_off).to(cuda_device),
+                torch.from_numpy(s_off).to(cuda_device))
+        for gather, term, accum in combos:
+            if accum == "skip":  # positive data: the sums do not cancel
+                args = (kind, gather, term, accum, slabs.abs(), offs,
+                        x.abs(), L, G, r, pt, ps)
+                y, sink = bv.bucket_variant(*args, return_sink=True)
+                y_plain, want = bv.bucket_variant_plain(*args,
+                                                        return_sink=True)
+                assert not y.any() and not y_plain.any()
+                assert ((sink - want).abs()
+                        <= 1e-5 * want.abs().max()).all(), (kind, gather, term)
+                continue
+            args = (kind, gather, term, accum, slabs, offs, x, L, G, r, pt,
+                    ps)
+            y = bv.bucket_variant(*args)
+            torch.cuda.synchronize()
+            y_plain = bv.bucket_variant_plain(*args)
+            tol = bv.kernel_tolerance(*args, y_plain)
+            assert ((y - y_plain).abs() <= tol).all(), (kind, gather, term,
+                                                        accum)
+        # K1 refuses segments outside x and y: move them back inside
+        offs = (offs[0].clamp(0, L - pt), offs[1].clamp(0, L - ps))
+        data = bv.k1_data(kind, slabs, offs, r, pt, ps)
+        y_k1 = cuda_matvec.apply_hmatrix_cuda(data, x.reshape(L, 1), L, "N",
+                                              "N").reshape(1, L)
+        y_base = bv.bucket_variant(kind, "roll", "vpu", "roll", slabs, offs,
+                                   x, L, G, r, pt, ps)
+        err = (y_k1 - y_base).abs().max() / y_base.abs().max()
+        assert err <= 1e-5, (kind, float(err))
+
+
+@pytest.mark.gpu
+def test_take_along_axis_matches_plain_version(cuda_device):
+    """P4 at the reference probe's shapes and on random indices: equal to
+    its plain version; an index outside the row raises IndexError."""
+    from htool_python_torch.profiling import bucket_variants as bv
+
+    x = torch.arange(8 * 1024, dtype=torch.float32,
+                     device=cuda_device).reshape(8, 1024)
+    idx = (torch.arange(256, dtype=torch.int32, device=cuda_device) + 3
+           ).expand(8, 256).contiguous()
+    got = bv.take_along_axis(x, idx)
+    assert torch.equal(got[0].cpu(), torch.arange(3, 259).float())
+    g = torch.Generator(cuda_device).manual_seed(0)
+    x = torch.rand((5, 333), device=cuda_device, generator=g)
+    idx = torch.randint(0, 333, (5, 77), device=cuda_device, generator=g,
+                        dtype=torch.int32)
+    assert torch.equal(bv.take_along_axis(x, idx),
+                       bv.take_along_axis_plain(x, idx))
+    idx[2, 5] = 333
+    with pytest.raises(IndexError):
+        bv.take_along_axis(x, idx)

@@ -193,7 +193,7 @@ def _port_sources():
 
 
 def test_port_never_imports_jax_or_the_reference():
-    banned = ("jax", "jaxlib", "htool_python_tpu")
+    banned = ("jax", "jaxlib", "htool_python_tpu", "tools")
     for path in _port_sources():
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
@@ -211,6 +211,8 @@ def test_port_never_imports_jax_or_the_reference():
                 names = [node.args[0].value]
             for name in names:
                 assert name.split(".")[0] not in banned, (path, name)
+                # nor the reference's scripts under tools/
+                assert not name.startswith("profile_matvec"), (path, name)
     # and at run time: importing every port module loads neither
     mods = sorted({".".join(p.relative_to(ROOT).with_suffix("").parts)
                    .removesuffix(".__init__")
