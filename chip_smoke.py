@@ -5,6 +5,7 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 chip_smoke.py            # headline N = 40000, Helmholtz N = 100000
     python3 chip_smoke.py --n 24000 --n-helm 20000   # a smaller rehearsal
+    python3 chip_smoke.py --k1-buckets-only   # K1 bucket by bucket, alone
 
 Phases, in this order, one line each (`phase <name> {json}`):
   device:       card name and power limit, kernel build seconds, ptxas
@@ -35,6 +36,12 @@ Phases, in this order, one line each (`phase <name> {json}`):
                 1e-5 relative plus, for 'xgemm', the TF32 bound of
                 csrc/bucket_variants.cu, K1 within 1e-5 of 'base', P4
                 exact;
+  k1_buckets:   K1 on each bucket of the headline operator alone (and,
+                after `hlu`, of the hlu operator), k = 1, 8 and 128, by
+                CUDA events: ms, stored bytes, GB/s and the share of P1's
+                best read rate in this run (its buffer cases, by CUDA
+                events), and the sum over the buckets against the fused
+                product's ms (the gap is the tail and the mix);
   product_time: product ms for k = 1 and 8 from a device-resident chain,
                 effective GB/s over the stored bytes, a device-to-device
                 copy rate, P1's best read rate of `profiling`, the
@@ -44,9 +51,12 @@ Phases, in this order, one line each (`phase <name> {json}`):
                 instead of once per operator;
   k1_check:     kernel K1 against its plain version on the card, for
                 trans N/T x storage N (the headline buckets), S-L, S-U
-                (smaller assemblies) x k in {1, 4, 8}, each within 1e-5
-                relative (the kernel sums with f32 atomics, in a varying
-                order), both timed with CUDA events;
+                (smaller assemblies) x k in {1, 2, 4, 8, 9, 32, 64, 128}
+                (FFMA up to 8 columns, 3xTF32 tensor cores from 9), each
+                within 1e-5 relative (the kernel sums with f32 atomics, in
+                a varying order), both timed with CUDA events, beside the
+                bound (`product_bound`: bytes, or operations at the f32
+                rate, or at k > 8 three TF32 products at the TF32 rate);
   k1_complex_x: K1 on the real view of a complex64 x (H real: H (a + ib)
                 = H a + i H b) against the plain version on the headline
                 operator, k in {1, 4}, within 1e-5;
@@ -97,13 +107,13 @@ Phases, in this order, one line each (`phase <name> {json}`):
                 the host), both <= 1e-5.
   k1al_check:   kernel K1-al (K1 on the aligned low-rank layout,
                 ops/matvec.py align_lowrank) against its plain version on
-                the same data, storage N and S-L x trans N and T x k in {1,
-                4, 8, 128}, each within 1e-5 relative, on the headline
-                operator and its S-L twin (N = 40000, leaf 128) and on the
-                hlu operator and its S-L twin (N = 32768, leaf 64); with
-                K1's time on the canonical layout of the same operator,
-                both layouts' stored bytes and the bound (the canonical
-                bytes);
+                the same data, and K1 on the canonical layout against its
+                plain version, storage N and S-L x trans N and T x k in {1,
+                2, 4, 8, 9, 32, 64, 128}, each within 1e-5 relative, on the
+                headline operator and its S-L twin (N = 40000, leaf 128)
+                and on the hlu operator and its S-L twin (N = 32768, leaf
+                64); with both times, both layouts' stored bytes and the
+                bound (the canonical bytes);
   hlu:          the reference's pinned 32k factorization
                 (tests/test_hier_local_solver.py:65-96): N points on the
                 unit sphere (seed 11), second_kind_kernel(0.5, 0.5 N), eps
@@ -133,9 +143,12 @@ Phases, in this order, one line each (`phase <name> {json}`):
                 `distributed`.
 Every kernel check (k1_check, k1_complex_x, k2_check) runs each case under
 the three launch structures of config.matvec_kernel_mode ('fused',
-'per_bucket', 'seq'); K1-al has the fused structure only.
-Then a `kernels` JSON line, the nvidia-smi line, and last the JSON ok
-line.  Any failure raises and exits non-zero; without a CUDA device the
+'per_bucket', 'seq'); K1-al has the fused structure only.  The `ddm`
+phase holds every structure to 44 +- 2 iterations.
+Then `versus_before` (this run's product ms, K1 / K1-al ms on the hlu
+operator, distributed product ms, ms per DDM iteration and LU seconds
+beside the previous product kernel's, as PERF.md recorded them), a
+`kernels` JSON line, the nvidia-smi line, and last the JSON ok line.  Any failure raises and exits non-zero; without a CUDA device the
 script exits non-zero before printing any result.  Imports nothing of JAX.
 """
 
@@ -152,6 +165,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+TF32_FLOPS = 495e12  # H100 SXM TF32 tensor cores, dense
 KERNEL_TOL = 1e-5  # f32 atomic summation order vs the plain version
 SAMPLED_ERR_MAX = 1e-3  # the headline epsilon
 HELM_EPS = 1e-6
@@ -159,13 +173,32 @@ HELM_ERR_MAX = 2 * HELM_EPS  # complex64 round-off is of the order of eps
 DDM_EPS = 1e-4  # the reference's ddm_gmres stage (bench.py _stage_ddm)
 DDM_TOL = 1e-6
 DDM_MAX_IT = 300
+# the ddm phase's iterations in every launch structure (every H100 run in
+# PERF.md; the TPU reference took 48), kept within +-2
+DDM_ITERATIONS = 44
 # the true residual |A x - f| / |f| of the f32 solve, recomputed through
 # the f32 product: GMRES stops at tol 1e-6 on its own estimate
 DDM_TRUE_RES_MAX = 1e-5
 HLU_EPS = 1e-3  # tests/test_hier_local_solver.py:65-96
 DDM_HIER_EPS = 1e-4  # tests/test_hier_local_solver.py:21-62
 DDM_HIER_MAX_IT = 200
-K1AL_KS = (1, 4, 8, 128)
+# columns of the K1 and K1-al checks: the FFMA widths (1-8), the first
+# tensor-core width (9) and the HODLR peeling's chunks (32-128)
+K1_KS = (1, 2, 4, 8, 9, 32, 64, 128)
+K1_TIMED_KS = (1, 8, 32, 64, 128)
+# the previous product kernel's numbers (PERF.md, its final run on an H100
+# 80GB HBM3 at 700 W), printed beside this run's in `versus_before`
+BEFORE = {"product_ms_k1": 0.253, "product_ms_k8": 0.367,
+          "k1_hlu_ms_k128": 1.282, "k1al_hlu_ms_k1": 0.063,
+          "k1al_hlu_ms_k8": 0.129, "k1al_hlu_ms_k128": 1.148,
+          "distributed_global_product_ms_k1": 0.42,
+          "distributed_global_product_ms_k8": 0.50,
+          "ddm_ms_per_iteration_warm": "1.6-1.9", "hlu_lu_s": 1.18,
+          "ddm_hier_ms_per_iteration": "6.5-6.9"}
+
+
+# this run's values of the metrics in BEFORE, filled by the phases
+SUMMARY = {}
 
 
 def check(cond, msg):
@@ -251,7 +284,9 @@ def product_bound(data, L, k):
     offsets and mirror flag per block, x read once and y written once in
     the data's dtype) over the HBM rate, against its flops (per stored
     entry, column and use — a mirrored block is used twice — 2 for real
-    data, 8 for complex: 4 multiplies and 4 adds) over the f32 rate."""
+    data, 8 for complex: 4 multiplies and 4 adds) over the f32 rate; for
+    real data at k > 8, where K1 multiplies on the tensor cores in 3xTF32,
+    three TF32 products for each f32 one at the TF32 rate."""
     nbytes = 0
     flops = 0
     itemsize = 4
@@ -263,7 +298,10 @@ def product_bound(data, L, k):
         nbytes += sum(m.numel() * itemsize for m in mats) + 9 * mirror.numel()
         flops += (8 if mats[0].is_complex() else 2) * k * per_block * uses
     nbytes += 2 * int(L) * k * itemsize
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    tensor_cores = k > 8 and itemsize == 4 and not any(
+        e[0].is_complex() for e in data["dense"] + data["lr"])
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 3 * flops / TF32_FLOPS if tensor_cores else flops / F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -431,11 +469,13 @@ def kernel_cases(torch, operators, phase, dtype, transes, ks=(1, 4, 8),
                         cfg.matvec_kernel_mode = "fused"
                     abs_err = float((y - y_plain).abs().max())
                     rel = abs_err / float(y_plain.abs().max())
+                    bound, bound_by = product_bound(data, L, k)
                     case = dict(storage=symmetry + ("-" + UPLO if UPLO != "N"
                                                     else ""),
                                 N=n, trans=trans, k=k, mode=mode,
                                 max_rel_err=rel, max_abs_err=abs_err, ms=ms,
-                                plain_ms=plain_ms)
+                                plain_ms=plain_ms, bound_ms=bound,
+                                bound_by=bound_by)
                     emit(phase, **case)
                     check(y.dtype == y_plain.dtype and np.isfinite(rel)
                           and rel <= KERNEL_TOL,
@@ -730,6 +770,8 @@ def distributed(T, torch, n, device, counts):
     product = {f"k{k}": apply_chain_ms(torch, apply, n, k, torch.float32,
                                        device, k) for k in (1, 8)}
     info = op.get_distributed_information()
+    SUMMARY.update({f"distributed_global_product_ms_{key}": v
+                    for key, v in product.items()})
     emit("distributed", N=n, partitions=op.n_partitions, epsilon=1e-3,
          eta=10.0, leaf=128, dtype="float32", build_s=t_build,
          build_profile=approx.build_profile,
@@ -872,9 +914,13 @@ def ddm(T, torch, n, device, counts):
         check(counts[name] > 0, f"the {mode} solve never launched {name}")
         check(set(by_mode[mode]["launches"]) == {name},
               f"the {mode} solve launched {by_mode[mode]['launches']}")
+    SUMMARY["ddm_ms_per_iteration_warm"] = {
+        s["mode"]: s["ms_per_iteration"] for s in solves[1:4]}
     its = [s["iterations"] for s in solves[1:4]]
-    check(max(its) - min(its) <= 2,
-          f"iteration counts of the three launch structures: {its}")
+    check(max(its) - min(its) <= 2
+          and all(abs(i - DDM_ITERATIONS) <= 2 for i in its),
+          f"iteration counts of the three launch structures: {its}, not "
+          f"{DDM_ITERATIONS} +- 2")
     emit("ddm", N=n, partitions=P, epsilon=DDM_EPS, eta=10.0, leaf=128,
          dtype="float32", schwarz="asm", tol=DDM_TOL, restart=60,
          subdomain_sizes=[s.size for s in solver.subdomains],
@@ -890,11 +936,12 @@ def ddm(T, torch, n, device, counts):
     return cases
 
 
-def k1al_cases(torch, operators, label, ks=K1AL_KS, reps=20):
+def k1al_cases(torch, operators, label, ks=K1_KS, reps=20):
     """K1-al on the aligned layout of every operator x trans x k against
     its plain version on the same data (the aligned windows add zero
-    columns only); K1 on the canonical layout timed beside it.  These
-    launches are checks, not the main path."""
+    columns only), and K1 on the canonical layout against its plain
+    version, timed beside it.  These launches are checks, not the main
+    path."""
     from htool_python_torch.ops.cuda_matvec import (BucketTable,
                                                     apply_hmatrix_cuda)
     from htool_python_torch.ops.matvec import (ALIGN_LANE, align_lowrank,
@@ -920,12 +967,18 @@ def k1al_cases(torch, operators, label, ks=K1AL_KS, reps=20):
                 torch.cuda.synchronize()
                 abs_err = float((y - y_plain).abs().max())
                 rel = abs_err / float(y_plain.abs().max())
+                y1 = apply_hmatrix_cuda(data, x, L, trans, symmetry, table)
+                y1_plain = apply_hmatrix_padded(data, x, L, trans, symmetry)
+                abs_err1 = float((y1 - y1_plain).abs().max())
+                rel1 = abs_err1 / float(y1_plain.abs().max())
+                del y1, y1_plain
                 bound, bound_by = product_bound(data, L, k)
                 case = dict(
                     operator=label, storage=symmetry + ("-" + UPLO if UPLO
                                                         != "N" else ""),
                     N=n, trans=trans, k=k, max_rel_err=rel,
-                    max_abs_err=abs_err,
+                    max_abs_err=abs_err, k1_max_rel_err=rel1,
+                    k1_max_abs_err=abs_err1,
                     ms=cuda_ms(lambda: apply_hmatrix_cuda(
                         aligned, x, L, trans, symmetry, table_al), reps=reps),
                     k1_ms=cuda_ms(lambda: apply_hmatrix_cuda(
@@ -941,8 +994,123 @@ def k1al_cases(torch, operators, label, ks=K1AL_KS, reps=20):
                 check(np.isfinite(rel) and rel <= KERNEL_TOL,
                       f"k1al_check: K1-al disagrees with its plain version: "
                       f"{case}")
+                check(np.isfinite(rel1) and rel1 <= KERNEL_TOL,
+                      f"k1al_check: K1 disagrees with its plain version: "
+                      f"{case}")
                 results.append(case)
     return results
+
+
+def p1_best_gbs(torch, device, reps=20):
+    """P1's best read rate over its buffer cases (stream.STREAM_CASES, 384
+    MiB each), by CUDA events: the read rate the card reaches in this run."""
+    from htool_python_torch.profiling import stream
+    from htool_python_torch.profiling.timing import cuda_ms
+
+    g = torch.Generator(device).manual_seed(5)
+    x = torch.rand((1, stream.OUT_COLS), device=device, generator=g)
+    best = 0.0
+    for step_mb, n_buf in stream.STREAM_CASES:
+        rows, _ = stream.stream_rows(step_mb, n_buf)
+        bufs = [torch.rand((rows, stream.WIDTH), device=device, generator=g)
+                for _ in range(n_buf)]
+        ms = cuda_ms(lambda: stream.stream_probe(bufs, x, step_mb), reps=reps)
+        best = max(best, sum(b.numel() * 4 for b in bufs) / ms / 1e6)
+        del bufs
+    return best
+
+
+def device_ms(torch, fn, reps=20, cover_cycles=10_000_000):
+    """Device ms per call of fn: CUDA events around `reps` calls queued
+    behind a spin kernel (torch.cuda._sleep, ~5 ms), so that the card runs
+    the calls back to back however long the host takes to queue them (a
+    plain event timing of a short call measures the host).  The same as
+    profiling/timing.py's, kept here so that --k1-buckets-only also runs
+    on a checkout that predates it."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(cover_cycles)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def k1_buckets(torch, operators, stream_gbs, ks=(1, 8, 128), reps=20):
+    """K1 on each bucket of each operator alone (a one-bucket data list and
+    its own BucketTable, 'fused', trans N), timed with CUDA events at each
+    k: ms by CUDA events over back-to-back calls (bounded below by the
+    host's time per call, ~0.03-0.08 ms) and device ms (`device_ms`: the
+    calls queued behind a spin kernel, the wrapper's zeroing of y
+    included), stored bytes, GB/s and the share of P1's best read rate
+    `stream_gbs` (both from the device ms); and the sum over the buckets
+    against the whole fused product.  One `k1_buckets` line per operator and k.  These launches are
+    measurements, not the main path; they go only through
+    `apply_hmatrix_cuda` and `BucketTable`, so an older checkout of the
+    package runs them too (--k1-buckets-only)."""
+    from htool_python_torch.ops.cuda_matvec import (BucketTable,
+                                                    apply_hmatrix_cuda)
+    from htool_python_torch.ops.matvec import stored_bytes
+    from htool_python_torch.profiling.timing import cuda_ms
+
+    out = {}
+    for label, hm in operators.items():
+        data, table = hm._product_data(), hm._bucket_table()
+        L, n = hm._pad_len, hm.shape[0]
+        singles = []
+        for kind in ("dense", "lr"):
+            for entry in data[kind]:
+                if entry[0].shape[0] == 0:
+                    continue
+                one = {"dense": [entry] if kind == "dense" else [],
+                       "lr": [entry] if kind == "lr" else []}
+                singles.append((kind, entry, one, BucketTable(one,
+                                                              hm.device)))
+        g = torch.Generator(hm.device).manual_seed(17)
+        for k in ks:
+            x = torch.zeros((L, k), device=hm.device)
+            x[:n] = torch.rand((n, k), device=hm.device, generator=g)
+            def fused():
+                return apply_hmatrix_cuda(data, x, L, "N", "N", table)
+
+            fused_ms = cuda_ms(fused, reps=reps)
+            fused_dev = device_ms(torch, fused)
+            rows = []
+            for kind, entry, one, t1 in singles:
+                def run():
+                    return apply_hmatrix_cuda(one, x, L, "N", "N", t1)
+
+                ms = cuda_ms(run, reps=reps)
+                dev = device_ms(torch, run)
+                nbytes = stored_bytes(one)
+                gbs = nbytes / dev / 1e6
+                shape = entry[0].shape
+                rows.append(dict(
+                    kind=kind, nb=int(shape[0]),
+                    pt=int(shape[1] if kind == "dense" else shape[2]),
+                    ps=int(shape[2] if kind == "dense" else entry[1].shape[2]),
+                    r=0 if kind == "dense" else int(shape[1]),
+                    bytes=int(nbytes), ms=ms, device_ms=dev, GBs=gbs,
+                    share_of_stream=gbs / stream_gbs,
+                    bound_ms=product_bound(one, L, k)[0]))
+            total = sum(rw["device_ms"] for rw in rows)
+            nbytes = stored_bytes(data)
+            emit("k1_buckets", operator=label, N=n, k=k,
+                 stream_GBs=stream_gbs, fused_ms=fused_ms,
+                 fused_device_ms=fused_dev,
+                 fused_GBs=nbytes / fused_dev / 1e6,
+                 fused_share_of_stream=nbytes / fused_dev / 1e6 / stream_gbs,
+                 sum_of_buckets_device_ms=total, gap_ms=fused_dev - total,
+                 bound_ms=product_bound(data, L, k)[0],
+                 stored_bytes=int(nbytes), buckets=rows)
+            out[label, k] = dict(fused_ms=fused_ms, fused_device_ms=fused_dev,
+                                 sum_device_ms=total, rows=rows)
+            del x
+    return out
 
 
 def second_kind_operator(T, torch, n, rng, diagonal, eps, symmetry, UPLO,
@@ -1059,6 +1227,7 @@ def hlu(T, torch, n, device, counts):
           and set(al_launches) == {cuda_matvec.ALIGNED_NAME},
           f"hlu: the aligned LU launched {al_launches}, not K1-al alone")
     counts.update(al_launches)
+    SUMMARY["hlu_lu_s"] = lu["factorization_s"]
     rng_s = np.random.RandomState(11)
     hm_s, t_asm_s = second_kind_operator(T, torch, n, rng_s, 0.5 * n, HLU_EPS,
                                          "S", "L", device)
@@ -1151,6 +1320,8 @@ def ddm_hier(T, torch, n, device, counts):
     cold = solve("cold")
     warm = solve("warm")
     counts.update(warm["launches"])
+    SUMMARY["ddm_hier_ms_per_iteration"] = {
+        s["solve"]: s["ms_per_iteration"] for s in (cold, warm)}
     cases = block_row_cases(torch, op, "ddm_hier")
     A_fn = op.build_device_apply()
     M_fn = solver._device_preconditioner()
@@ -1453,6 +1624,11 @@ def main(argv=None) -> int:
                     help="points of the hierarchical-tier DDM solve "
                     "(default: 16384)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--k1-buckets-only", action="store_true",
+                    help="build the headline and hlu operators and run the "
+                    "k1_buckets phase alone (it needs nothing of the package "
+                    "but the product's wrapper, so it also times an older "
+                    "checkout's K1); prints no ok line")
     args = ap.parse_args(argv)
 
     import torch
@@ -1487,6 +1663,14 @@ def main(argv=None) -> int:
     hm = main_path(T, torch, args.n, args.seed, device, counts)
     check(counts.get(KERNEL_NAME, 0) > 0,
           "the main path never launched kernel K1")
+    if args.k1_buckets_only:
+        hm_lu, _ = second_kind_operator(T, torch, args.n_hlu,
+                                        np.random.RandomState(11),
+                                        0.5 * args.n_hlu, HLU_EPS, "N", "N",
+                                        device)
+        k1_buckets(torch, {"headline": hm, "hlu": hm_lu},
+                   p1_best_gbs(torch, device))
+        return 0
 
     prof_counts = {}
     prof = profiling(torch, device, prof_counts, smi)
@@ -1508,6 +1692,10 @@ def main(argv=None) -> int:
                          bound_ms=bound, bound_by=bound_by,
                          product_ms_table_per_call=chain_ms(
                              torch, hm, k, args.seed, prepared=False))
+    SUMMARY.update({f"product_ms_k{k}": v["product_ms"]
+                    for k, v in timing.items()})
+    stream_events_gbs = p1_best_gbs(torch, device)
+    k1_buckets(torch, {"headline": hm}, stream_events_gbs)
     emit("product_time", card=smi, stored_bytes=int(nbytes), copy_GBs=copy_gbs,
          stream_GBs=stream_gbs,
          host_ms_per_call={"prepared_table": host_ms(torch, hm, True),
@@ -1523,7 +1711,7 @@ def main(argv=None) -> int:
     for sym in (("S", "L"), ("S", "U")):
         operators[sym] = build_operator(T, torch, pts_sym, *sym, device)[0]
     cases = kernel_cases(torch, operators, "k1_check", torch.float32,
-                         ("N", "T"))
+                         ("N", "T"), ks=K1_KS)
     del operators
     cx_cases = kernel_cases(torch, {("N", "N"): hm}, "k1_complex_x",
                             torch.complex64, ("N", "C"), ks=(1, 4))
@@ -1565,6 +1753,7 @@ def main(argv=None) -> int:
     hm_lu, hm_lu_s = hlu(T, torch, args.n_hlu, device, hlu_counts)
     al_cases += k1al_cases(torch, {("N", "N"): hm_lu, ("S", "L"): hm_lu_s},
                            "hlu")
+    k1_buckets(torch, {"hlu": hm_lu}, stream_events_gbs)
     del hm_lu, hm_lu_s
     torch.cuda.empty_cache()
     hier_counts = {}
@@ -1618,6 +1807,21 @@ def main(argv=None) -> int:
                     and c["storage"] == "N" and c["trans"] == "N"
                     and c["k"] == k)
 
+    def by_k(ms_key, operator=None):
+        """{k: (ms, bound ms, bound_by)} of K1 (fused, headline, trans N,
+        storage N) or of the aligned-layout cases of `operator`."""
+        out = {}
+        for k in K1_TIMED_KS:
+            c = (al_case(operator, k) if operator else next(
+                c for c in cases if c["mode"] == "fused"
+                and c["storage"] == "N" and c["trans"] == "N"
+                and c["k"] == k))
+            out[k] = dict(ms=c[ms_key], bound_ms=c["bound_ms"],
+                          bound_by=c["bound_by"])
+        return out
+
+    kernels[0]["headline_by_k"] = by_k("ms")
+
     head = al_case("hlu", 1)
     kernels.append({
         "name": ALIGNED_NAME, "route": "cuda", "source": k1_src,
@@ -1635,7 +1839,16 @@ def main(argv=None) -> int:
            for k in (8, 128) for key in ("ms", "plain_ms", "bound_ms")},
         **{f"k1_ms_k{k}": al_case("hlu", k)["k1_ms"] for k in (1, 8, 128)},
         **{f"headline_{key}_k{k}": al_case("headline", k)[key]
-           for k in (1, 8, 128) for key in ("ms", "k1_ms")}})
+           for k in (1, 8, 128) for key in ("ms", "k1_ms")},
+        "hlu_by_k": by_k("ms", "hlu"), "k1_hlu_by_k": by_k("k1_ms", "hlu")})
+    SUMMARY.update({"k1_hlu_ms_k128": al_case("hlu", 128)["k1_ms"],
+                    **{f"k1al_hlu_ms_k{k}": al_case("hlu", k)["ms"]
+                       for k in (1, 8, 128)}})
+    emit("versus_before", card=smi,
+         before_origin="PERF.md: the previous product kernel's final run, "
+         "H100 80GB HBM3, 700 W",
+         **{key: {"now": SUMMARY.get(key), "before": v}
+            for key, v in BEFORE.items()})
     kernels += profiling_entries(prof_counts, prof_checks, prof)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

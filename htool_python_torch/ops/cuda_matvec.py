@@ -17,6 +17,13 @@ Each kernel has three launch structures, chosen by the config knob
   * 'seq' (K1-seq / K2-seq, the reference's `_launch_seq`): one launch of
     a persistent grid that walks the buckets in order.
 
+K1 walks the work list of its BucketTable (ops/matvec.py `work_list`:
+block slices of at most WORK_ROWS rows, every stored entry in exactly one
+item): 'fused' over the items largest first, 'seq' over them in bucket
+order, 'per_bucket' one launch per bucket over that bucket's items.  One
+K1 launch takes up to K1_PASS_COLS columns; a wider x runs in passes of
+that many columns, each pass one launch (per bucket, for 'per_bucket').
+
 Only this wrapper reads the knob.  On a CUDA tensor the chosen structure
 launches (never another one); the plain version has no launch structure,
 so on the CPU every mode runs it.  LAUNCH_COUNTS counts each structure
@@ -27,10 +34,12 @@ per-bucket product counts one launch per non-empty bucket.
 K1-al (`hmatrix_product/aligned`, the reference's `_step_body` kind
 "alr"): float32 data in the aligned low-rank layout (ops/matvec.py
 `align_lowrank`, which HMatrix._product_data gives with
-config.matvec_aligned_layout on) launches K1's aligned instantiation in
-the 'fused' structure.  The data is an ordinary bucket list, so the plain
-version and the 'per_bucket' / 'seq' structures take it as it is (they
-count as K1-pb / K1-seq).
+config.matvec_aligned_layout on) launches K1 through its aligned entry
+point `hm_k1_launch_al` in the 'fused' structure: the same body, whose
+x strips of low-rank blocks are then whole aligned sectors and whose
+k <= 2 output rows go out four (two) at a time.  The data is an ordinary
+bucket list, so the plain version and the 'per_bucket' / 'seq' structures
+take it as it is (they count as K1-pb / K1-seq).
 
 Contract (the same as `apply_hmatrix_padded`, their plain version in
 ops/matvec.py): for bucket data {'dense': [(D, t_off, s_off, mirror)],
@@ -56,7 +65,9 @@ raises.  The data's dtype picks the kernel:
 Tolerance: many blocks add into the same rows of y with f32 atomicAdd, in
 an order that changes from run to run, so either kernel agrees with the
 plain version to f32 summation round-off (checked at 1e-5 relative), not
-bit for bit.
+bit for bit.  K1 at more than 8 columns multiplies on the tensor cores in
+3xTF32 (each f32 operand split into two TF32 parts), which keeps f32's
+round-off.
 
 The operand's device decides: CPU tensors go to the plain version; on a
 CUDA tensor this always launches a kernel or raises, never falls back.
@@ -70,13 +81,17 @@ import numpy as np
 import torch
 
 from ..config import get_config
-from .matvec import apply_hmatrix_padded, is_aligned
+from .matvec import apply_hmatrix_padded, is_aligned, work_list
 
 KERNEL_NAME = "hmatrix_product"  # K1
 K2_NAME = "hmatrix_product_complex"
 ALIGNED_NAME = "hmatrix_product/aligned"  # K1-al
 
 MODES = ("fused", "per_bucket", "seq")
+
+# columns of one K1 launch (kMaxCols in csrc/hmatrix_product.cu); a wider x
+# runs in passes of this many columns
+K1_PASS_COLS = 128
 
 
 def launch_name(kernel: str, mode: str) -> str:
@@ -90,7 +105,7 @@ LAUNCH_COUNTS = {launch_name(kern, mode): 0 for kern in (KERNEL_NAME, K2_NAME)
                  for mode in MODES}
 LAUNCH_COUNTS[ALIGNED_NAME] = 0
 
-_TABLE_FIELDS = 10  # int64 fields per bucket row (struct Bucket in the .cu)
+_TABLE_FIELDS = 10  # int64 fields per bucket row (struct Bucket, K2's .cu)
 
 # the data dtype each kernel takes
 _KERNEL_OF = {torch.float32: KERNEL_NAME, torch.complex64: K2_NAME}
@@ -113,25 +128,39 @@ def kernel_mode() -> str:
     return mode
 
 
+_LIBS = {}
+
+
 def _library(name):
+    """The kernel library `name`, built and loaded at first use, with its
+    functions' ctypes signatures set once."""
+    if name in _LIBS:
+        return _LIBS[name]
     from .cuda_build import load
 
     lib = load(name)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    pre = "hm_k1" if name == KERNEL_NAME else "hm_k2"
-    conj = [] if name == KERNEL_NAME else [i, i]  # conj_fwd, conj_tr
-    whole = [p, i, ll, p, ll, p, ll, i, i, i, *conj, i, i, p]
-    aligned = [("launch_al", whole)] if name == KERNEL_NAME else []
-    for suffix, argtypes in (
-            ("launch", whole), ("launch_seq", whole), *aligned,
-            ("launch_per_bucket", [p, p, i, p, ll, p, ll, i, i, i, *conj,
-                                   p])):
+    if name == KERNEL_NAME:
+        # items, n_items, x, lx, y, ly, k, swapped, symmetric, stream
+        whole = [p, ll, p, ll, p, ll, i, i, i, p]
+        signatures = (("launch", whole), ("launch_al", whole),
+                      ("launch_seq", whole),
+                      ("launch_per_bucket", [p, p, i, p, ll, p, ll, i, i, i,
+                                             p]))
+        pre, err = "hm_k1", lib.hm_error_string
+    else:
+        whole = [p, i, ll, p, ll, p, ll, i, i, i, i, i, i, i, p]
+        signatures = (("launch", whole), ("launch_seq", whole),
+                      ("launch_per_bucket", [p, p, i, p, ll, p, ll, i, i, i,
+                                             i, i, p]))
+        pre, err = "hm_k2", lib.hm_k2_error_string
+    for suffix, argtypes in signatures:
         fn = getattr(lib, f"{pre}_{suffix}")
         fn.argtypes = argtypes
         fn.restype = i
-    err = lib.hm_error_string if name == KERNEL_NAME else lib.hm_k2_error_string
     err.argtypes = [i]
     err.restype = ctypes.c_char_p
+    _LIBS[name] = lib
     return lib
 
 
@@ -207,6 +236,43 @@ def _bucket_rows(data, device, dtype):
     return rows, first, max_dim, max_r
 
 
+def _item_records(data, order, device):
+    """K1's work items `order` ((n, 4) host array of (bucket row, block,
+    lo, hi), ops/matvec.py `work_list`) as the kernel reads them: an int64
+    (n, 6) tensor on `device` of struct Item records
+    (csrc/hmatrix_product.cu), each naming its factor rows by address, its
+    offsets (a dense slice's target already moved to its first row), rows,
+    widths and flags (1: dense, 2: mirror), so that the kernel reads one
+    record per item and nothing else about it.  Built on the host: one copy
+    of the offsets and mirror flags down, one of the records up."""
+    buckets = [e for kind in ("dense", "lr") for e in data[kind]
+               if e[0].shape[0]]
+    n_dense = sum(1 for e in data["dense"] if e[0].shape[0])
+    meta = [torch.cat([e[i].reshape(-1).to(torch.int64) for e in buckets]
+                      ).cpu().numpy() if buckets else np.zeros(0, np.int64)
+            for i in (-3, -2, -1)]
+    first = np.cumsum([0] + [e[0].shape[0] for e in buckets])
+    b, blk = order[:, 0].astype(np.int64), order[:, 1].astype(np.int64)
+    lo = order[:, 2].astype(np.int64)
+    t, s, mirror = (m[first[b] + blk] if len(b) else m[:0] for m in meta)
+    # per bucket: factor addresses, rows of a block, widths, dense flag
+    geo = np.array([(e[0].data_ptr(), e[1].data_ptr() if i >= n_dense else 0,
+                     e[0].shape[1], e[0].shape[2], e[1].shape[2]
+                     if i >= n_dense else e[0].shape[2], e[0].element_size(),
+                     int(i < n_dense)) for i, e in enumerate(buckets)],
+                   dtype=np.int64).reshape(-1, 7)[b]
+    a_ptr, v_ptr, rows, w_a, w_v, size, dense = geo.T
+    rec = np.zeros((len(order), 6), dtype=np.int64)
+    rec[:, 0] = a_ptr + (blk * rows + lo) * w_a * size
+    rec[:, 1] = np.where(dense == 1, 0, v_ptr + (blk * rows + lo) * w_v * size)
+    rec[:, 2] = (t + lo * dense) | (s << 32)
+    # dense: pt is its rows' count, ps its width; low-rank: pt, ps widths
+    pt = np.where(dense == 1, rows, w_a)
+    rec[:, 3] = (order[:, 3] - lo) | (pt << 32)
+    rec[:, 4] = w_v | ((2 * mirror + dense) << 32)
+    return torch.from_numpy(rec).to(device)
+
+
 def _extent(data) -> int:
     """max(t_off + pt, s_off + ps) over every block: the rows that x and y
     must both hold (one host sync)."""
@@ -227,13 +293,21 @@ class BucketTable:
     ends, max(t_off + pt, s_off + ps).  A product reads and writes both
     sides of every block (mirror terms, and the plain version's masked
     ones), so x and y must both hold `extent` rows; the wrapper checks that
-    on every call, since the kernels themselves skip rows past the end of
-    y and read zeros past the end of x.  `aligned`: the data is in the
-    aligned low-rank layout, which a fused K1 product runs as K1-al.  On CUDA the table also holds the
-    device table of bucket descriptors (struct Bucket in the .cu files),
-    built after every operand was checked, and its host copy `host_rows`,
-    which a per-bucket product reads for each launch's block count and
-    dims (no device read).  It names the data's tensors by
+    on every call (K2 skips rows past the end of y and reads zeros past
+    the end of x; K1 copies x rows without a bound).  `aligned`: the data
+    is in the aligned low-rank layout, which a fused K1 product runs as
+    K1-al.  `work`: for real data, K1's work list (ops/matvec.py
+    `work_list`), built on every device, which checks that every factor
+    run is contiguous and 16-byte aligned.
+
+    On CUDA, after every operand was checked, the table also holds what
+    the kernel reads: for K1 the work list as item records
+    (`_item_records`), largest first (`items`) and in bucket order
+    (`items_by_bucket`, whose bucket ranges `work.ranges` a per-bucket
+    product reads on the host); for K2 the device table of bucket
+    descriptors (struct Bucket in hmatrix_product_complex.cu) and its host
+    copy `host_rows`, which a per-bucket product reads for each launch's
+    block count and dims (no device read).  It names the data's tensors by
     pointer: it stays valid while the data's containers and tensors do
     (HMatrix builds one at its first product and drops it on copy and
     whenever its buckets are replaced).
@@ -243,11 +317,17 @@ class BucketTable:
         device = torch.device(device)
         if device.type not in ("cpu", "cuda"):
             raise ValueError(f"unsupported device {device}")
+        if device.type == "cuda" and device.index is None:
+            # the form tensors report, so that devices compare
+            device = torch.device("cuda", torch.cuda.current_device())
         self.device = device
         self.dtype = _data_dtype(data)
         self.aligned = is_aligned(data)
         self.extent = _extent(data)
         self.table = None
+        # K1's work list (real data), checked on every device
+        self.work = (work_list(data) if self.dtype is not None
+                     and not self.dtype.is_complex else None)
         if device.type == "cuda":
             self.n_blocks = 0
             if self.dtype is not None:
@@ -255,10 +335,15 @@ class BucketTable:
                 rows, self.n_blocks, self.max_dim, self.max_r = _bucket_rows(
                     data, device, self.dtype)
                 self.n_buckets = len(rows)
-                self.host_rows = np.ascontiguousarray(
-                    np.asarray(rows, dtype=np.int64).reshape(-1,
-                                                             _TABLE_FIELDS))
-                self.table = torch.from_numpy(self.host_rows).to(device)
+                if self.work is not None:
+                    self.items = _item_records(data, self.work.items, device)
+                    self.items_by_bucket = _item_records(
+                        data, self.work.by_bucket, device)
+                else:
+                    self.host_rows = np.ascontiguousarray(
+                        np.asarray(rows, dtype=np.int64).reshape(
+                            -1, _TABLE_FIELDS))
+                    self.table = torch.from_numpy(self.host_rows).to(device)
 
 
 def _conj_flags(trans: str, sym: str):
@@ -274,36 +359,61 @@ def _conj_flags(trans: str, sym: str):
     return conj_mirror, conj_main
 
 
+def _launch_k1(lib, mode, aligned, table, x, y, trans, sym, stream):
+    """K1's launches over the work list: 'fused' (K1-al on aligned data)
+    and 'seq' one launch per pass of K1_PASS_COLS columns, over the list
+    largest first and in bucket order; 'per_bucket' one per bucket and
+    pass.  Returns (rc, launches)."""
+    L, k = x.shape
+    io = (x.data_ptr(), L, y.data_ptr(), y.shape[0], k, int(trans != "N"),
+          int(sym != "N"))
+    passes = -(-k // K1_PASS_COLS)
+    n = len(table.work.items)
+    if mode == "per_bucket":
+        return lib.hm_k1_launch_per_bucket(
+            table.items_by_bucket.data_ptr(), table.work.ranges.ctypes.data,
+            table.n_buckets, *io, stream), table.n_buckets * passes
+    if mode == "seq":
+        return lib.hm_k1_launch_seq(table.items_by_bucket.data_ptr(), n, *io,
+                                    stream), passes
+    fn = lib.hm_k1_launch_al if aligned else lib.hm_k1_launch
+    return fn(table.items.data_ptr(), n, *io, stream), passes
+
+
 def _launch(name, mode, table, x, y, trans, sym):
     """Kernel `name` in launch structure `mode` over `table`, x (L, k) into
     the zeroed y (ny, k); x and y hold the kernel's dtype."""
     lib = _library(name)
-    counter = (ALIGNED_NAME if name == KERNEL_NAME and mode == "fused"
-               and table.aligned else launch_name(name, mode))
+    aligned = name == KERNEL_NAME and mode == "fused" and table.aligned
+    counter = ALIGNED_NAME if aligned else launch_name(name, mode)
     device = x.device
     L, k = x.shape
     stream = torch.cuda.current_stream(device).cuda_stream
-    pre, err = (("hm_k1", lib.hm_error_string) if name == KERNEL_NAME
-                else ("hm_k2", lib.hm_k2_error_string))
-    conj = ([] if name == KERNEL_NAME
-            else [int(c) for c in _conj_flags(trans, sym)])
-    io = (x.data_ptr(), L, y.data_ptr(), y.shape[0], k, int(trans != "N"),
-          int(sym != "N"), *conj)
     with torch.cuda.device(device):
-        if mode == "per_bucket":
-            rc = getattr(lib, pre + "_launch_per_bucket")(
-                table.table.data_ptr(), table.host_rows.ctypes.data,
-                table.n_buckets, *io, stream)
+        if name == KERNEL_NAME:
+            rc, launches = _launch_k1(lib, mode, aligned, table, x, y, trans,
+                                      sym, stream)
+            err = lib.hm_error_string
         else:
-            fn = getattr(lib, pre + ("_launch_seq" if mode == "seq"
-                                     else "_launch_al" if counter
-                                     == ALIGNED_NAME else "_launch"))
-            rc = fn(table.table.data_ptr(), table.n_buckets, table.n_blocks,
-                    *io, table.max_dim, table.max_r, stream)
+            err = lib.hm_k2_error_string
+            io = (x.data_ptr(), L, y.data_ptr(), y.shape[0], k,
+                  int(trans != "N"), int(sym != "N"),
+                  *[int(c) for c in _conj_flags(trans, sym)])
+            if mode == "per_bucket":
+                rc = lib.hm_k2_launch_per_bucket(
+                    table.table.data_ptr(), table.host_rows.ctypes.data,
+                    table.n_buckets, *io, stream)
+            else:
+                fn = (lib.hm_k2_launch_seq if mode == "seq"
+                      else lib.hm_k2_launch)
+                rc = fn(table.table.data_ptr(), table.n_buckets,
+                        table.n_blocks, *io, table.max_dim, table.max_r,
+                        stream)
+            launches = table.n_buckets if mode == "per_bucket" else 1
     if rc != 0:
         raise RuntimeError(f"{counter} launch failed: CUDA "
                            f"error {rc} ({err(rc).decode()})")
-    LAUNCH_COUNTS[counter] += table.n_buckets if mode == "per_bucket" else 1
+    LAUNCH_COUNTS[counter] += launches
 
 
 def real_view_product(real_product, x_pad, ny_pad: int):

@@ -19,6 +19,9 @@ is.
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 
@@ -137,6 +140,141 @@ def apply_hmatrix_padded(data, x_pad, ny_pad: int, trans: str, sym: str):
             _scatter_add(y, t_off,
                          lowrank_block_term(Ut, V, _gather(x_pad, s_off, ps),
                                             conj=conj_mirror) * m)
+    return y
+
+
+# Rows of one work item at most: rank rows of a low-rank block, rows of a
+# dense one (kMaxRows in csrc/hmatrix_product.cu: the kernel keeps an
+# item's w = V x, (rows, k), in registers and shared memory).
+WORK_ROWS = 64
+
+
+@dataclasses.dataclass
+class WorkList:
+    """Kernel K1's work list over bucket data (`work_list`).
+
+    Each item is (bucket row, block, lo, hi): rows [lo, hi) of one block,
+    rank rows of a low-rank block (U V is the sum of its rank slices) or
+    rows of a dense one, at most WORK_ROWS of them.  Bucket rows number the
+    non-empty buckets as the kernels' table does: dense buckets, then
+    low-rank ones.  `items` is ordered largest first (by stored bytes),
+    `by_bucket` in bucket order, `ranges[b]` is
+    bucket row b's (first item, count) in `by_bucket`, and `nbytes[i]` the
+    stored bytes of items[i].  Every stored entry belongs to exactly one
+    item.  Items of equal size, and the items of one bucket, come in a
+    fixed shuffled order, so that items running at the same time seldom
+    add into the same rows of y."""
+
+    items: np.ndarray  # (n, 4) int32
+    by_bucket: np.ndarray  # (n, 4) int32
+    ranges: np.ndarray  # (n_buckets, 2) int64
+    nbytes: np.ndarray  # (n,) int64
+
+
+def _check_runs(named):
+    """Each (name, stored tensor) is contiguous and starts on 16 bytes, and
+    each of its rows (D's ps, Ut's pt, V's ps values) is a whole number of
+    16 bytes: every block, and every row the kernel copies, is then one
+    16-byte aligned run."""
+    for name, t in named:
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} {tuple(t.shape)} is not a contiguous "
+                             "run starting on 16 bytes")
+        if t.shape[2] * t.element_size() % 16:
+            raise ValueError(f"{name} rows of {t.shape[2]} values are not "
+                             "whole 16-byte runs")
+
+
+def work_list(data) -> WorkList:
+    """The work list of kernel K1 over `data` (see WorkList); raises
+    ValueError unless every factor run is contiguous and 16-byte aligned
+    (`_check_runs`).  Host only: shapes and data pointers, no device
+    read."""
+    parts = []  # (bucket row, block, lo, hi, bytes) arrays per bucket
+    row = 0
+    for kind in ("dense", "lr"):
+        for entry in data[kind]:
+            if kind == "dense":
+                D = entry[0]
+                _check_runs([("D", D)])
+                nb, rows, per_row = D.shape[0], D.shape[1], D.shape[2]
+                itemsize = D.element_size()
+            else:
+                Ut, V = entry[0], entry[1]
+                _check_runs([("Ut", Ut), ("V", V)])
+                nb, rows = Ut.shape[0], Ut.shape[1]
+                per_row = Ut.shape[2] + V.shape[2]
+                itemsize = Ut.element_size()
+            if nb == 0:
+                continue
+            lo = np.arange(0, rows, WORK_ROWS)
+            hi = np.minimum(lo + WORK_ROWS, rows)
+            blocks = np.repeat(np.arange(nb), len(lo))
+            part = np.empty((len(blocks), 5), dtype=np.int64)
+            part[:, 0] = row
+            part[:, 1] = blocks
+            part[:, 2] = np.tile(lo, nb)
+            part[:, 3] = np.tile(hi, nb)
+            part[:, 4] = (part[:, 3] - part[:, 2]) * per_row * itemsize
+            parts.append(part)
+            row += 1
+    allp = (np.concatenate(parts) if parts
+            else np.zeros((0, 5), dtype=np.int64))
+    counts = np.bincount(allp[:, 0], minlength=row)
+    ranges = np.stack([np.cumsum(counts) - counts, counts], 1)
+    # ties in a fixed shuffled order: a plan lists the blocks of one block
+    # row together, and items that run at the same time and add into the
+    # same rows of y would queue on the same atomic addresses
+    spread = np.random.RandomState(0).permutation(len(allp))
+    order = np.lexsort((spread, -allp[:, 4]))
+    by_bucket = np.lexsort((spread, allp[:, 0]))
+    return WorkList(
+        items=np.ascontiguousarray(allp[order, :4], dtype=np.int32),
+        by_bucket=np.ascontiguousarray(allp[by_bucket, :4], dtype=np.int32),
+        ranges=np.ascontiguousarray(ranges, dtype=np.int64),
+        nbytes=allp[order, 4])
+
+
+def apply_work_list(data, wl: WorkList, x_pad, ny_pad: int, trans: str,
+                    sym: str):
+    """The plain walk of K1's work list: y_pad = H^(trans) x_pad computed
+    item by item, each item's rows as the kernel splits them (items with
+    the same bucket and rows run as one batch).  Real data only (for real
+    data 'C' is 'T' and 'H' is 'S'); the same result as
+    `apply_hmatrix_padded`, which stays K1's plain version.  CPU tests use
+    it to check the decomposition."""
+    buckets = list(data["dense"]) + list(data["lr"])
+    buckets = [e for e in buckets if e[0].shape[0]]
+    if any(e[0].is_complex() for e in buckets):
+        raise ValueError("the work list walks real data only (kernel K1)")
+    dtype = result_dtype(data, x_pad.dtype)
+    x = x_pad.to(dtype)
+    y = torch.zeros((ny_pad, x.shape[1]), dtype=dtype, device=x.device)
+    n_dense = sum(1 for e in data["dense"] if e[0].shape[0])
+    items = torch.as_tensor(wl.items, dtype=torch.long)
+    groups, inverse = torch.unique(items[:, [0, 2, 3]], dim=0,
+                                   return_inverse=True)
+    for gi, (b, lo, hi) in enumerate(groups.tolist()):
+        blk = items[inverse == gi, 1].to(x.device)
+        entry = buckets[b]
+        t_off, s_off, mirror = (e[blk] for e in entry[-3:])
+        mirrored = mirror.to(dtype)[:, None, None]
+        fwd = torch.ones_like(mirrored) if trans == "N" else mirrored
+        tr = mirrored if trans == "N" else torch.ones_like(mirrored)
+        if b < n_dense:
+            Dr = entry[0][blk, lo:hi].to(dtype)  # (nb, R, ps)
+            ps = Dr.shape[2]
+            _scatter_add(y, t_off + lo, torch.einsum(
+                "nij,njk->nik", Dr, _gather(x, s_off, ps)) * fwd)
+            _scatter_add(y, s_off, torch.einsum(
+                "nij,nik->njk", Dr, _gather(x, t_off + lo, hi - lo)) * tr)
+        else:
+            Ut = entry[0][blk, lo:hi].to(dtype)
+            V = entry[1][blk, lo:hi].to(dtype)
+            _scatter_add(y, t_off, lowrank_block_term(
+                Ut, V, _gather(x, s_off, V.shape[2])) * fwd)
+            _scatter_add(y, s_off, lowrank_block_term_t(
+                Ut, V, _gather(x, t_off, Ut.shape[2])) * tr)
     return y
 
 

@@ -1,8 +1,9 @@
 """Timing on the card, shared by the profiling path and chip_smoke.py.
 
-`cuda_ms` times a call by CUDA events; `chain_time` times a
-device-resident chain of applications, the counterpart of the reference's
-tools/profile_matvec.py:27 `_chain_time`.
+`cuda_ms` times a call by CUDA events; `device_ms` the same behind a spin
+kernel, so that a short call's host time does not count; `chain_time`
+times a device-resident chain of applications, the counterpart of the
+reference's tools/profile_matvec.py:27 `_chain_time`.
 """
 
 from __future__ import annotations
@@ -68,3 +69,21 @@ def chain_time(fn, data, x, reps_lo=10, reps_hi=60):
     t_lo = timed(reps_lo)
     t_hi = timed(reps_hi)
     return max((t_hi - t_lo) / (reps_hi - reps_lo), 1e-9)
+
+
+def device_ms(fn, reps=20, cover_cycles=10_000_000):
+    """Device ms per call of fn: CUDA events around `reps` calls queued
+    behind a spin kernel (torch.cuda._sleep, ~5 ms on an H100), so that
+    the card runs the calls back to back however long the host takes to
+    queue them; a plain event timing of a short call measures the host."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(cover_cycles)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps

@@ -21,7 +21,9 @@ The one-level preconditioner has the reference's two local-solver tiers:
   is, per subdomain, gather -> HODLR solve -> weighted scatter-add.
 
 Not ported yet, and raising NotImplementedError: the GenEO coarse space
-`build_coarse_space` (ROADMAP item 16).
+`build_coarse_space` (ROADMAP item 16).  Without a coarse space,
+`-hpddm_schwarz_coarse_correction` runs the one-level solve, as the
+reference does.
 """
 
 from __future__ import annotations
@@ -241,11 +243,12 @@ class DDMSolver:
         return out[:n]
 
     def _device_preconditioner(self):
-        """(n, k) -> (n, k) tensor preconditioner, or None."""
+        """(n, k) -> (n, k) tensor preconditioner, or None.  The reference
+        adds a coarse term only where a coarse space was built
+        (`-hpddm_schwarz_coarse_correction` with none runs one-level); no
+        coarse space can be built yet (`build_coarse_space`), so the option
+        leaves the one-level preconditioner as it is."""
         method = self.options.get("schwarz_method", "none")
-        coarse = self.options.get("schwarz_coarse_correction", "none")
-        if coarse != "none":
-            raise NotImplementedError(_GENEO)
         if method not in ("asm", "ras") or (self._facto is None
                                             and not self._hier):
             return None

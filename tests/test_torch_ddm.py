@@ -82,18 +82,21 @@ def _builder(kind, approx, generator, symmetry, UPLO, ovr, c2o, neighbors,
                                            geometry, hb)
 
 
-def _args(symmetry, schwarz, variant="right"):
+def _args(symmetry, schwarz, variant="right", coarse_correction="none"):
     restart = "" if symmetry == "S" else " -hpddm_gmres_restart 200 "
     return ("-hpddm_krylov_method gmres" + restart
             + " -hpddm_schwarz_method " + schwarz
             + f" -hpddm_max_it 200 -hpddm_variant {variant} -hpddm_tol "
-            + str(_TOL))
+            + str(_TOL)
+            + f" -hpddm_schwarz_coarse_correction {coarse_correction}")
 
 
-def _solve(solver, f, symmetry, schwarz, variant="right"):
+def _solve(solver, f, symmetry, schwarz, variant="right",
+           coarse_correction="none"):
     dtype = "complex128" if symmetry != "S" else "float64"
     x = np.zeros(f.shape, dtype=dtype, order="F")
-    solver.set_hpddm_args(_args(symmetry, schwarz, variant))
+    solver.set_hpddm_args(_args(symmetry, schwarz, variant,
+                                coarse_correction))
     if schwarz in ("asm", "ras"):
         solver.facto_one_level()
     solver.solve(x, f)
@@ -181,6 +184,42 @@ def test_iterations_equal_reference_on_its_operator(load_data_solver,
     assert (builder.solver.get_information()["Nb_it"]
             == ref_builder.solver.get_information()["Nb_it"])
     assert np.linalg.norm(x - x_ref) <= 1e-10 * np.linalg.norm(x_ref)
+
+
+@pytest.mark.parametrize("mu", [1])
+@pytest.mark.parametrize("symmetry,schwarz,n_partitions",
+                         [("S", "asm", 2), ("N", "ras", 4)])
+def test_coarse_correction_without_coarse_space_matches_reference(
+        load_data_solver, golden_data_root, mu, symmetry, schwarz,
+        n_partitions):
+    """-hpddm_schwarz_coarse_correction with no coarse space built: both
+    packages run the one-level solve (the reference's use_coarse needs a
+    coarse space), with equal iteration counts and solutions."""
+    [A, _, f, _, ref_cluster, _, _, symmetry, UPLO, _, _, _] = \
+        load_data_solver
+    ref = H.DefaultApproximationBuilder(
+        GeneratorFromMatrix(A), ref_cluster, ref_cluster,
+        H.HMatrixTreeBuilder(_EPS, 10, symmetry, UPLO), None)
+    ref_builder = H.DDMSolverBuilder(ref.distributed_operator,
+                                     copy.deepcopy(ref.block_diagonal_hmatrix))
+    x_ref = _solve(ref_builder.solver, f, symmetry, schwarz,
+                   coarse_correction="additive")
+    cluster = _port_cluster(golden_data_root, symmetry, n_partitions)
+    op = interop.distributed_from_reference(
+        cluster, cluster,
+        [(h.plan, jax.tree_util.tree_map(np.asarray, h._data), h._lr_ranks,
+          h.epsilon) for h in ref.hmatrix], "cpu")
+    diag = PerPartition(_extract_block_diagonal(
+        op._global_to_local[p][0].hmatrix, cluster, cluster, p)
+        for p in range(n_partitions))
+    solver = T.DDMSolverBuilder(op, diag).solver
+    x = _solve(solver, f, symmetry, schwarz, coarse_correction="additive")
+    assert solver.get_information()["Coarse_correction"] == "additive"
+    assert (solver.get_information()["Nb_it"]
+            == ref_builder.solver.get_information()["Nb_it"])
+    assert np.linalg.norm(x - x_ref) <= 1e-10 * np.linalg.norm(x_ref)
+    x_one = _solve(solver, f, symmetry, schwarz)
+    assert np.linalg.norm(x - x_one) <= 1e-12 * np.linalg.norm(x_one)
 
 
 # the hierarchical tier at the golden size: every subdomain (100 or 200
@@ -368,11 +407,13 @@ def test_what_is_not_ported_raises(load_data_solver, golden_data_root, mu,
     assert np.linalg.norm(x_hier - x_dense) <= 1e-10 * np.linalg.norm(x_dense)
     with pytest.raises(NotImplementedError, match="item 16"):
         solver.build_coarse_space([], None)
-    solver.facto_one_level()
-    solver.set_hpddm_args("-hpddm_schwarz_method asm "
-                          "-hpddm_schwarz_coarse_correction additive")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        solver.solve(np.zeros_like(f), f)
+    # a coarse correction without a coarse space runs one-level, as the
+    # reference does (it raised NotImplementedError before)
+    x_coarse = _solve(solver, f, symmetry, "asm",
+                      coarse_correction="additive")
+    assert solver.get_information()["Nb_it"] == its
+    assert np.linalg.norm(x_coarse - x_dense) <= 1e-12 * np.linalg.norm(
+        x_dense)
     with pytest.raises(ValueError, match="-hpddm_geneo_nu"):
         solver.set_hpddm_args("-hpddm_geneo_nu 2")
 

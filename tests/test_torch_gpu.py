@@ -391,6 +391,138 @@ def test_k1al_matches_plain_version(cuda_device):
                     assert err <= 1e-5, (symmetry, UPLO, trans, k, float(err))
 
 
+def _split_buckets(device, seed=0):
+    """float32 buckets that K1's work list splits: dense 192 x 128 blocks
+    (3 row items each), rank-70 low-rank blocks (2 rank items each), a
+    small low-rank bucket, and an empty one; random mirror flags."""
+    rng = np.random.RandomState(seed)
+    L = 1024
+
+    def meta(nb, pt, ps):
+        return (torch.as_tensor(rng.randint(0, L - pt, nb),
+                                dtype=torch.int32, device=device),
+                torch.as_tensor(rng.randint(0, L - ps, nb),
+                                dtype=torch.int32, device=device),
+                torch.as_tensor(rng.rand(nb) < 0.5, device=device))
+
+    def arr(*shape):
+        return torch.as_tensor(rng.randn(*shape), dtype=torch.float32,
+                               device=device)
+
+    data = {"dense": [(arr(3, 192, 128), *meta(3, 192, 128))],
+            "lr": [(arr(4, 70, 64), arr(4, 70, 96), *meta(4, 64, 96)),
+                   (arr(0, 3, 32), arr(0, 3, 32), *meta(0, 32, 32)),
+                   (arr(2, 5, 32), arr(2, 5, 32), *meta(2, 32, 32))]}
+    return data, L
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["fused", "per_bucket", "seq"])
+def test_k1_work_list_matches_plain_version(cuda_device, launch_mode, mode):
+    """K1's work-list body in each launch structure (K1-al for aligned
+    data under 'fused') on low-rank sphere operators (storage N, S-L),
+    their aligned layout, and buckets the work list splits, at the widths
+    of chip_smoke.py's checks, FFMA (k <= 8) and 3xTF32 (k >= 9), and a
+    two-pass width (130): within 1e-5 relative of the plain version."""
+    from htool_python_torch.models.kernels import second_kind_kernel
+    from htool_python_torch.ops.matvec import ALIGN_LANE, align_lowrank
+
+    launch_mode(mode)
+    n = 6000
+    points = create_random_points_on_sphere(n, np.random.RandomState(3))
+    builder = T.ClusterTreeBuilder()
+    builder.set_maximal_leaf_size(64)
+    cluster = builder.create_cluster_tree(points, 2)
+    cases = []
+    for symmetry, UPLO in (("N", "N"), ("S", "L")):
+        hb = T.HMatrixTreeBuilder(1e-4, 10.0, symmetry, UPLO,
+                                  device=cuda_device)
+        hb.set_dtype(torch.float32)
+        hm = hb.build(T.KernelGenerator(second_kind_kernel(0.5, 10.0), points,
+                                        points, device=cuda_device),
+                      cluster, cluster)
+        assert hm._data["lr"]
+        cases.append((symmetry, hm._data, hm._pad_len))
+        cases.append((symmetry, align_lowrank(hm._data, ALIGN_LANE),
+                      hm._pad_len))
+    split, L_split = _split_buckets(cuda_device)
+    cases.append(("S", split, L_split))
+    for symmetry, data, L in cases:
+        table = cuda_matvec.BucketTable(data, cuda_device)
+        for trans in ("N", "T"):
+            for k in (1, 2, 4, 8, 9, 32, 128, 130):
+                g = torch.Generator(cuda_device).manual_seed(k)
+                x = torch.rand((L, k), device=cuda_device, generator=g)
+                y = cuda_matvec.apply_hmatrix_cuda(data, x, L, trans,
+                                                   symmetry, table)
+                y_plain = apply_hmatrix_padded(data, x, L, trans, symmetry)
+                err = (y - y_plain).abs().max() / y_plain.abs().max()
+                assert err <= 1e-5, (symmetry, table.aligned, trans, k,
+                                     float(err))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("operator", ["headline", "hlu"])
+def test_k1_at_the_main_path_shapes(cuda_device, operator):
+    """K1 and K1-al at chip_smoke.py's shapes and widths: the headline
+    operator (N = 40000, leaf 128) and the hlu operator (N = 32768 on the
+    sphere, leaf 64), trans N / T, k in {1, 2, 4, 8, 9, 32, 128}, within
+    1e-5 relative of the plain version."""
+    from htool_python_torch.models.geometry import \
+        create_random_points_in_sphere
+    from htool_python_torch.models.kernels import second_kind_kernel
+    from htool_python_torch.ops.matvec import ALIGN_LANE, align_lowrank
+
+    if operator == "headline":
+        n, leaf = 40000, 128
+        points = create_random_points_in_sphere(n, np.random.RandomState(0))
+        kernel = inverse_distance_kernel(0.1)
+    else:
+        n, leaf = 32768, 64
+        points = create_random_points_on_sphere(n, np.random.RandomState(11))
+        kernel = second_kind_kernel(0.5, 0.5 * n)
+    builder = T.ClusterTreeBuilder()
+    builder.set_maximal_leaf_size(leaf)
+    cluster = builder.create_cluster_tree(points, 2)
+    hb = T.HMatrixTreeBuilder(1e-3, 10.0, "N", "N", device=cuda_device)
+    hb.set_dtype(torch.float32)
+    hm = hb.build(T.KernelGenerator(kernel, points, points,
+                                    device=cuda_device), cluster, cluster)
+    L = hm._pad_len
+    for data in (hm._data, align_lowrank(hm._data, ALIGN_LANE)):
+        table = cuda_matvec.BucketTable(data, cuda_device)
+        for trans in ("N", "T"):
+            for k in (1, 2, 4, 8, 9, 32, 128):
+                g = torch.Generator(cuda_device).manual_seed(k)
+                x = torch.zeros((L, k), device=cuda_device)
+                x[:n] = torch.rand((n, k), device=cuda_device, generator=g)
+                y = cuda_matvec.apply_hmatrix_cuda(data, x, L, trans, "N",
+                                                   table)
+                y_plain = apply_hmatrix_padded(data, x, L, trans, "N")
+                err = (y - y_plain).abs().max() / y_plain.abs().max()
+                assert err <= 1e-5, (operator, table.aligned, trans, k,
+                                     float(err))
+
+
+@pytest.mark.gpu
+def test_k1_zero_columns_and_empty_buckets(cuda_device):
+    """A product with no columns, and one over buckets that are all empty,
+    launch nothing and give zeros; an empty bucket among full ones is
+    skipped."""
+    data, L = _split_buckets(cuda_device)
+    table = cuda_matvec.BucketTable(data, cuda_device)
+    assert table.n_buckets == 3 and len(table.work.ranges) == 3
+    before = dict(cuda_matvec.LAUNCH_COUNTS)
+    y = cuda_matvec.apply_hmatrix_cuda(
+        data, torch.zeros((L, 0), device=cuda_device), L, "N", "S", table)
+    assert y.shape == (L, 0)
+    empty = {"dense": [], "lr": [data["lr"][1]]}
+    y = cuda_matvec.apply_hmatrix_cuda(
+        empty, torch.rand((L, 3), device=cuda_device), L, "N", "N")
+    assert y.shape == (L, 3) and not y.any()
+    assert cuda_matvec.LAUNCH_COUNTS == before
+
+
 @pytest.mark.gpu
 def test_hodlr_factorization_on_the_card(cuda_device):
     """lu_factorization / cholesky_factorization above a lowered
