@@ -6,6 +6,8 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py            # headline N = 40000, Helmholtz N = 100000
     python3 chip_smoke.py --n 24000 --n-helm 20000   # a smaller rehearsal
     python3 chip_smoke.py --k1-buckets-only   # K1 bucket by bucket, alone
+    python3 chip_smoke.py --k1-buckets-only --bucket-operators helmholtz
+                                              # K2 bucket by bucket, alone
 
 Phases, in this order, one line each (`phase <name> {json}`):
   device:       card name and power limit, kernel build seconds, ptxas
@@ -37,7 +39,9 @@ Phases, in this order, one line each (`phase <name> {json}`):
                 csrc/bucket_variants.cu, K1 within 1e-5 of 'base', P4
                 exact;
   k1_buckets:   K1 on each bucket of the headline operator alone (and,
-                after `hlu`, of the hlu operator), k = 1, 8 and 128, by
+                after `helmholtz`, K2 on each bucket of the Helmholtz
+                operator with a complex x; after `hlu`, K1 on the hlu
+                operator), k = 1, 8 and 128, by
                 CUDA events: ms, stored bytes, GB/s and the share of P1's
                 best read rate in this run (its buffer cases, by CUDA
                 events), and the sum over the buckets against the fused
@@ -71,11 +75,15 @@ Phases, in this order, one line each (`phase <name> {json}`):
                 device-resident chain, effective GB/s and the bound, and
                 the sampled error on 200 rows against the dense oracle
                 (<= 2e-6: eps, plus complex64 round-off of the same order);
-  k2_check:     kernel K2 against its plain version for trans N/T/C x
-                storage N (the Helmholtz buckets), H-L, H-U (hermitian
-                kernel) and S-L (the complex-symmetric exp(10i r) / (0.1 +
-                r)) on smaller sphere assemblies x k in {1, 4, 8}, each
-                within 1e-5 relative, both timed with CUDA events;
+  k2_check:     kernel K2 (K1's body on complex64) against its plain
+                version for trans N/T/C x storage N (the Helmholtz
+                buckets), H-L, H-U (hermitian kernel) and S-L (the
+                complex-symmetric exp(10i r) / (0.1 + r)) on smaller sphere
+                assemblies x k in {1, 2, 4, 8, 9, 32, 64, 128} ('fused':
+                FFMA up to 8 columns, 3xTF32 tensor cores from 9, passes of
+                64 columns) and {1, 4, 8} ('per_bucket', 'seq'), each
+                within 1e-5 relative, both timed with CUDA events, beside
+                `product_bound`;
   recompression_paths: seconds of both recompression paths (the SVD-form
                 trim and the streaming QR + SVD) on the H-L operator, with
                 the ranks and bytes they leave;
@@ -146,8 +154,9 @@ the three launch structures of config.matvec_kernel_mode ('fused',
 'per_bucket', 'seq'); K1-al has the fused structure only.  The `ddm`
 phase holds every structure to 44 +- 2 iterations.
 Then `versus_before` (this run's product ms, K1 / K1-al ms on the hlu
-operator, distributed product ms, ms per DDM iteration and LU seconds
-beside the previous product kernel's, as PERF.md recorded them), a
+operator, K2 ms on the Helmholtz operator, distributed product ms, ms per
+DDM iteration and LU seconds beside the previous product kernels', as
+PERF.md recorded them), a
 `kernels` JSON line, the nvidia-smi line, and last the JSON ok line.  Any failure raises and exits non-zero; without a CUDA device the
 script exits non-zero before printing any result.  Imports nothing of JAX.
 """
@@ -186,9 +195,11 @@ DDM_HIER_MAX_IT = 200
 # tensor-core width (9) and the HODLR peeling's chunks (32-128)
 K1_KS = (1, 2, 4, 8, 9, 32, 64, 128)
 K1_TIMED_KS = (1, 8, 32, 64, 128)
-# the previous product kernel's numbers (PERF.md, its final run on an H100
-# 80GB HBM3 at 700 W), printed beside this run's in `versus_before`
+# the previous product kernels' numbers (PERF.md, their final runs on an
+# H100 80GB HBM3 at 700 W: K1's of PR 5, K2's of PR 6), printed beside
+# this run's in `versus_before`
 BEFORE = {"product_ms_k1": 0.253, "product_ms_k8": 0.367,
+          "k2_ms_k1": 1.019, "k2_ms_k8": 1.892,
           "k1_hlu_ms_k128": 1.282, "k1al_hlu_ms_k1": 0.063,
           "k1al_hlu_ms_k8": 0.129, "k1al_hlu_ms_k128": 1.148,
           "distributed_global_product_ms_k1": 0.42,
@@ -284,9 +295,11 @@ def product_bound(data, L, k):
     offsets and mirror flag per block, x read once and y written once in
     the data's dtype) over the HBM rate, against its flops (per stored
     entry, column and use — a mirrored block is used twice — 2 for real
-    data, 8 for complex: 4 multiplies and 4 adds) over the f32 rate; for
-    real data at k > 8, where K1 multiplies on the tensor cores in 3xTF32,
-    three TF32 products for each f32 one at the TF32 rate."""
+    data, 8 for complex: 4 multiplies and 4 adds) over the f32 rate; at
+    k > 8, where K1 and K2 multiply on the tensor cores in 3xTF32 (K2 as
+    two real products over the 2k interleaved real columns: the same 8
+    flops per complex entry and column), three TF32 products for each f32
+    one at the TF32 rate."""
     nbytes = 0
     flops = 0
     itemsize = 4
@@ -298,10 +311,8 @@ def product_bound(data, L, k):
         nbytes += sum(m.numel() * itemsize for m in mats) + 9 * mirror.numel()
         flops += (8 if mats[0].is_complex() else 2) * k * per_block * uses
     nbytes += 2 * int(L) * k * itemsize
-    tensor_cores = k > 8 and itemsize == 4 and not any(
-        e[0].is_complex() for e in data["dense"] + data["lr"])
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 3 * flops / TF32_FLOPS if tensor_cores else flops / F32_FLOPS
+    t_ops = 3 * flops / TF32_FLOPS if k > 8 else flops / F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -431,10 +442,12 @@ def host_ms(torch, hm, prepared, reps=100):
 
 
 def kernel_cases(torch, operators, phase, dtype, transes, ks=(1, 4, 8),
-                 reps=30, plain_reps=5):
+                 reps=30, plain_reps=5, other_ks=None):
     """A kernel against its plain version on the card for every operator
     x trans x k x launch structure (config.matvec_kernel_mode), with x of
-    `dtype`; kernel and plain version timed with CUDA events.  One line
+    `dtype`; kernel and plain version timed with CUDA events.  `other_ks`:
+    the k of the 'per_bucket' and 'seq' structures where they differ from
+    'fused''s `ks`.  One line
     `phase <phase>` per case; fails above the kernels' tolerance (f32
     atomics sum in a varying order).  These launches are checks, not the
     main path."""
@@ -458,6 +471,8 @@ def kernel_cases(torch, operators, phase, dtype, transes, ks=(1, 4, 8),
                 plain_ms = cuda_ms(lambda: apply_hmatrix_padded(
                     data, x, L, trans, symmetry), reps=plain_reps, warmup=1)
                 for mode in MODES:
+                    if mode != "fused" and other_ks and k not in other_ks:
+                        continue
                     cfg.matvec_kernel_mode = mode
                     try:
                         y = apply_hmatrix_cuda(data, x, L, trans, symmetry,
@@ -1041,7 +1056,8 @@ def device_ms(torch, fn, reps=20, cover_cycles=10_000_000):
 
 
 def k1_buckets(torch, operators, stream_gbs, ks=(1, 8, 128), reps=20):
-    """K1 on each bucket of each operator alone (a one-bucket data list and
+    """K1 (K2 on a complex64 operator, with a complex64 x) on each bucket
+    of each operator alone (a one-bucket data list and
     its own BucketTable, 'fused', trans N), timed with CUDA events at each
     k: ms by CUDA events over back-to-back calls (bounded below by the
     host's time per call, ~0.03-0.08 ms) and device ms (`device_ms`: the
@@ -1072,8 +1088,9 @@ def k1_buckets(torch, operators, stream_gbs, ks=(1, 8, 128), reps=20):
                                                               hm.device)))
         g = torch.Generator(hm.device).manual_seed(17)
         for k in ks:
-            x = torch.zeros((L, k), device=hm.device)
-            x[:n] = torch.rand((n, k), device=hm.device, generator=g)
+            x = torch.zeros((L, k), dtype=hm.dtype, device=hm.device)
+            x[:n] = torch.rand((n, k), dtype=hm.dtype, device=hm.device,
+                               generator=g)
             def fused():
                 return apply_hmatrix_cuda(data, x, L, "N", "N", table)
 
@@ -1100,6 +1117,7 @@ def k1_buckets(torch, operators, stream_gbs, ks=(1, 8, 128), reps=20):
             total = sum(rw["device_ms"] for rw in rows)
             nbytes = stored_bytes(data)
             emit("k1_buckets", operator=label, N=n, k=k,
+                 dtype=str(hm.dtype).replace("torch.", ""),
                  stream_GBs=stream_gbs, fused_ms=fused_ms,
                  fused_device_ms=fused_dev,
                  fused_GBs=nbytes / fused_dev / 1e6,
@@ -1555,11 +1573,25 @@ def profiling_checks(torch, device):
         err = float((out - bv.take_along_axis_plain(xx, idx)).abs().max())
         idx64 = idx.long()
         nbytes = (xx.numel() + 2 * idx.numel()) * 4
+        # timed in the form that reads nothing back: one device counter
+        # per case, checked once after the reps.  ms: events around
+        # back-to-back calls, which the host's time per call bounds;
+        # device_ms: the same calls queued behind a spin kernel
+        fault = bv.fault_counter(device)
+
+        def take():
+            return bv.take_along_axis(xx, idx, fault=fault)
+
+        def gather():
+            return torch.gather(xx, 1, idx64)
+
         record("P4", name, max_abs_err=err,
-               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, **_timed_case(
-                   lambda: bv.take_along_axis(xx, idx),
-                   lambda: bv.take_along_axis_plain(xx, idx),
-                   lambda: torch.gather(xx, 1, idx64), reps=100))
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+               device_ms=device_ms(torch, take, reps=100),
+               library_device_ms=device_ms(torch, gather, reps=100),
+               **_timed_case(take, lambda: bv.take_along_axis_plain(xx, idx),
+                             gather, reps=100))
+        bv.check_fault(fault, xx.shape[1])
         check(err == 0.0, f"P4 disagrees with its plain version ({name})")
     return cases
 
@@ -1599,9 +1631,40 @@ def profiling_entries(counts, checks, result):
                                for kind in ("lr", "dense")
                                for k, v in result["bucket"][kind].items()
                                if isinstance(v, dict)}),
-        entry("P4", "take_along_axis", "bucket_variants.cu",
-              pal + "5.py:288 (main; probe_kernel :301)", "probe")]
+        dict(entry("P4", "take_along_axis", "bucket_variants.cu",
+                   pal + "5.py:288 (main; probe_kernel :301)", "probe"),
+             device_ms=checks["P4"]["probe"]["device_ms"],
+             library_device_ms=checks["P4"]["probe"]["library_device_ms"])]
 
+
+
+def buckets_only(T, torch, args, device) -> int:
+    """--k1-buckets-only: the k1_buckets phase alone on the operators of
+    --bucket-operators, through nothing of the package but the product's
+    wrapper and the builders, so that an older checkout runs it too."""
+    wanted = args.bucket_operators.split(",")
+    unknown = set(wanted) - {"headline", "hlu", "helmholtz"}
+    check(not unknown, f"unknown --bucket-operators {sorted(unknown)}")
+    ops = {}
+    if "headline" in wanted:
+        ops["headline"] = main_path(T, torch, args.n, args.seed, device, {})
+    if "hlu" in wanted:
+        ops["hlu"] = second_kind_operator(
+            T, torch, args.n_hlu, np.random.RandomState(11),
+            0.5 * args.n_hlu, HLU_EPS, "N", "N", device)[0]
+    if "helmholtz" in wanted:
+        from htool_python_torch.models.geometry import \
+            create_random_points_on_sphere
+        from htool_python_torch.models.kernels import hermitian_phase_kernel
+
+        points = create_random_points_on_sphere(args.n_helm,
+                                                np.random.RandomState(1))
+        helm = build_complex(T, torch, points, hermitian_phase_kernel(10.0),
+                             "N", "N", device)[0]
+        T.recompression(helm)
+        ops["helmholtz"] = helm
+    k1_buckets(torch, ops, p1_best_gbs(torch, device))
+    return 0
 
 
 def main(argv=None) -> int:
@@ -1625,10 +1688,14 @@ def main(argv=None) -> int:
                     "(default: 16384)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--k1-buckets-only", action="store_true",
-                    help="build the headline and hlu operators and run the "
-                    "k1_buckets phase alone (it needs nothing of the package "
-                    "but the product's wrapper, so it also times an older "
-                    "checkout's K1); prints no ok line")
+                    help="build the operators of --bucket-operators and run "
+                    "the k1_buckets phase alone (it needs nothing of the "
+                    "package but the product's wrapper, so it also times an "
+                    "older checkout's K1 and K2); prints no ok line")
+    ap.add_argument("--bucket-operators", default="headline,hlu",
+                    help="operators of --k1-buckets-only, from headline, "
+                    "hlu, helmholtz (K2: the Helmholtz path's operator "
+                    "after recompression, complex x); default headline,hlu")
     args = ap.parse_args(argv)
 
     import torch
@@ -1659,18 +1726,12 @@ def main(argv=None) -> int:
                 for lib in cuda_build.SOURCES},
          svd_check=svd_check(torch, device))
 
+    if args.k1_buckets_only:
+        return buckets_only(T, torch, args, device)
     counts = {}
     hm = main_path(T, torch, args.n, args.seed, device, counts)
     check(counts.get(KERNEL_NAME, 0) > 0,
           "the main path never launched kernel K1")
-    if args.k1_buckets_only:
-        hm_lu, _ = second_kind_operator(T, torch, args.n_hlu,
-                                        np.random.RandomState(11),
-                                        0.5 * args.n_hlu, HLU_EPS, "N", "N",
-                                        device)
-        k1_buckets(torch, {"headline": hm, "hlu": hm_lu},
-                   p1_best_gbs(torch, device))
-        return 0
 
     prof_counts = {}
     prof = profiling(torch, device, prof_counts, smi)
@@ -1737,9 +1798,14 @@ def main(argv=None) -> int:
                       (("S", "L"), symmetric_phase_kernel(torch))):
         c_ops[sym] = build_complex(T, torch, pts_k2, kern, *sym, device)[0]
     k2 = kernel_cases(torch, c_ops, "k2_check", torch.complex64,
-                      ("N", "T", "C"), reps=20, plain_reps=3)
+                      ("N", "T", "C"), ks=K1_KS, reps=20, plain_reps=3,
+                      other_ks=(1, 4, 8))
+    SUMMARY.update({f"k2_ms_k{c['k']}": c["ms"] for c in k2
+                    if c["mode"] == "fused" and c["storage"] == "N"
+                    and c["trans"] == "N" and c["k"] in (1, 8)})
     emit("recompression_paths", operator=f"H-L, N={args.n_k2}",
          card=smi, **recompression_times(T, torch, c_ops[("H", "L")]))
+    k1_buckets(torch, {"helmholtz": helm}, stream_events_gbs)
 
     del helm, c_ops
     torch.cuda.empty_cache()
@@ -1779,22 +1845,26 @@ def main(argv=None) -> int:
                 "ms_k8": head8["ms"], "plain_ms_k8": head8["plain_ms"],
                 "bound_ms_k8": timing_[8]["bound_ms"]}
 
-    k1_src = "htool_python_torch/csrc/hmatrix_product.cu"
-    k2_src = "htool_python_torch/csrc/hmatrix_product_complex.cu"
+    k1_src = "htool_python_torch/csrc/hmatrix_product.cu"  # K1 and K2
     pallas = "htool_python_tpu/ops/pallas_matvec.py:"
     kernels = [
         dict(entry(KERNEL_NAME, "fused", k1_src, pallas + "538",
                    counts[KERNEL_NAME], cases, timing),
              max_abs_err_complex_x=max(c["max_abs_err"] for c in cx_cases),
              max_abs_err_block_rows=block_row_err("fused")),
-        entry(K2_NAME, "fused", k2_src, pallas + "571", helm_counts[K2_NAME],
-              k2, helm_timing)]
+        dict(entry(K2_NAME, "fused", k1_src, pallas + "571",
+                   helm_counts[K2_NAME], k2, helm_timing),
+             helmholtz_by_k={k: dict(ms=c["ms"], bound_ms=c["bound_ms"],
+                                     bound_by=c["bound_by"])
+                             for c in k2 if c["mode"] == "fused"
+                             and c["storage"] == "N" and c["trans"] == "N"
+                             for k in [c["k"]] if k in K1_TIMED_KS})]
     for mode, line in (("per_bucket", "522"), ("seq", "649")):
         # K1-pb / K1-seq on the DDM solve; K2's times in this structure
         # (complex64, the Helmholtz shapes) as extra fields
-        e = entry(KERNEL_NAME, mode, f"{k1_src} and {k2_src}", pallas + line,
+        e = entry(KERNEL_NAME, mode, k1_src, pallas + line,
                   ddm_counts[launch_name(KERNEL_NAME, mode)], cases, timing)
-        c = entry(K2_NAME, mode, k2_src, pallas + line, 0, k2, helm_timing)
+        c = entry(K2_NAME, mode, k1_src, pallas + line, 0, k2, helm_timing)
         e["max_abs_err"] = max(e["max_abs_err"], c["max_abs_err"])
         e["max_abs_err_block_rows"] = block_row_err(mode)
         e.update({f"complex64_{key}": c[key] for key in

@@ -5,9 +5,8 @@ repository unchanged) to PyTorch on an NVIDIA H100.  Cluster trees and
 block plans are computed on host (numpy); assembly (batched ACA, QR/SVD
 truncation, dense fills, recompression) runs as batched torch ops on the
 device; the compressed product runs the hand-written CUDA kernels K1 (real
-f32, csrc/hmatrix_product.cu) and K2 (complex64,
-csrc/hmatrix_product_complex.cu) through ops/cuda_matvec.py on CUDA
-tensors, and their plain PyTorch version on CPU tensors (K1-al, K1 on
+f32) and K2 (complex64), one body templated on the element type in
+csrc/hmatrix_product.cu, through ops/cuda_matvec.py on CUDA tensors, and their plain PyTorch version on CPU tensors (K1-al, K1 on
 the aligned low-rank layout, with config.matvec_aligned_layout).  H-LU /
 H-Cholesky (hmatrix/factorization.py, HODLR by randomized peeling in
 ops/hodlr.py), distributed operators (parallel/) and the one-level

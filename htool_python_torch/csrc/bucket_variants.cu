@@ -40,8 +40,10 @@
 //
 // P4 (`bv_take`) replaces the TPU probe of tools/profile_matvec5.py:288
 // (`probe_kernel` :301): out[i, j] = x[i, idx[i, j]] over int32 indices,
-// through `gather_at`; an index outside the row is counted in `fault`,
-// which the wrapper reads and raises on.  Its time is launch latency.
+// through `gather_at`; an index outside the row reads 0 and is counted in
+// `fault`, which the wrapper reads and raises on after one call, or which
+// the caller checks once after many (the timed form: no read, no sync per
+// call).  Its time is launch latency.
 //
 // Plain PyTorch versions and wrappers: htool_python_torch/profiling/
 // bucket_variants.py (`bucket_variant_plain`, `take_along_axis_plain`).

@@ -23,8 +23,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build"
 
 # kernel library name -> source file under csrc/
-SOURCES = {"hmatrix_product": "hmatrix_product.cu",  # K1
-           "hmatrix_product_complex": "hmatrix_product_complex.cu",  # K2
+SOURCES = {"hmatrix_product": "hmatrix_product.cu",  # K1, K2
            "stream_probe": "stream_probe.cu",  # P1, P2
            "bucket_variants": "bucket_variants.cu"}  # P3, P4
 

@@ -1,11 +1,11 @@
 """Kernels K1 and K2 on Hopper: the bucketed H-matrix product.
 
 K1, the real f32 product, is the counterpart of
-htool_python_tpu/ops/pallas_matvec.py `apply_hmatrix_pallas`; source
-htool_python_torch/csrc/hmatrix_product.cu.  K2, the complex64 product, is
-the counterpart of `apply_hmatrix_pallas_complex` there; source
-htool_python_torch/csrc/hmatrix_product_complex.cu.  Both are built by
-ops/cuda_build.py and called through ctypes.
+htool_python_tpu/ops/pallas_matvec.py `apply_hmatrix_pallas`; K2, the
+complex64 product, of `apply_hmatrix_pallas_complex` there.  Both are one
+kernel body, templated on the element type, in
+htool_python_torch/csrc/hmatrix_product.cu, built by ops/cuda_build.py and
+called through ctypes (entry points `hm_k1_*` and `hm_k2_*`).
 
 Each kernel has three launch structures, chosen by the config knob
 `matvec_kernel_mode` as in the reference (htool_python_tpu/config.py
@@ -17,19 +17,20 @@ Each kernel has three launch structures, chosen by the config knob
   * 'seq' (K1-seq / K2-seq, the reference's `_launch_seq`): one launch of
     a persistent grid that walks the buckets in order.
 
-K1 walks the work list of its BucketTable (ops/matvec.py `work_list`:
-block slices of at most WORK_ROWS rows, every stored entry in exactly one
-item): 'fused' over the items largest first, 'seq' over them in bucket
-order, 'per_bucket' one launch per bucket over that bucket's items.  One
-K1 launch takes up to K1_PASS_COLS columns; a wider x runs in passes of
-that many columns, each pass one launch (per bucket, for 'per_bucket').
+Both walk the work list of their BucketTable (ops/matvec.py `work_list`:
+block slices of at most WORK_ROWS rows, WORK_ROWS_COMPLEX for complex
+data, every stored entry in exactly one item): 'fused' over the items
+largest first, 'seq' over them in bucket order, 'per_bucket' one launch
+per bucket over that bucket's items.  One launch takes up to PASS_COLS[dtype] columns (an x row of 128 floats: 128
+real or 64 complex columns); a wider x runs in passes of that many
+columns, each pass one launch (per bucket, for 'per_bucket').
 
 Only this wrapper reads the knob.  On a CUDA tensor the chosen structure
 launches (never another one); the plain version has no launch structure,
 so on the CPU every mode runs it.  LAUNCH_COUNTS counts each structure
 under its own name (`hmatrix_product`, `hmatrix_product/per_bucket`,
 `hmatrix_product/seq`, and the same for `hmatrix_product_complex`); a
-per-bucket product counts one launch per non-empty bucket.
+per-bucket product counts one launch per non-empty bucket and pass.
 
 K1-al (`hmatrix_product/aligned`, the reference's `_step_body` kind
 "alr"): float32 data in the aligned low-rank layout (ops/matvec.py
@@ -57,17 +58,17 @@ raises.  The data's dtype picks the kernel:
   * complex64 data: K2, with a float32 x promoted to complex64 first.
     trans 'C' conjugates the operator, and a hermitian ('H') mirror term
     is conjugated; the wrapper turns both into one conjugation flag per
-    direction of a block (`_conj_flags`, the plain version's conj_main /
-    conj_mirror).
+    direction of a block (ops/matvec.py `conj_flags`, the plain version's
+    conj_main / conj_mirror).
   * float64 or complex128 on CUDA: NotImplementedError (ROADMAP item 22;
     the TPU had no f64 kernel either).
 
 Tolerance: many blocks add into the same rows of y with f32 atomicAdd, in
 an order that changes from run to run, so either kernel agrees with the
 plain version to f32 summation round-off (checked at 1e-5 relative), not
-bit for bit.  K1 at more than 8 columns multiplies on the tensor cores in
-3xTF32 (each f32 operand split into two TF32 parts), which keeps f32's
-round-off.
+bit for bit.  From 9 columns both multiply on the tensor cores in 3xTF32
+(each f32 operand split into two TF32 parts; K2 over the interleaved
+real columns), which keeps f32's round-off.
 
 The operand's device decides: CPU tensors go to the plain version; on a
 CUDA tensor this always launches a kernel or raises, never falls back.
@@ -81,7 +82,7 @@ import numpy as np
 import torch
 
 from ..config import get_config
-from .matvec import apply_hmatrix_padded, is_aligned, work_list
+from .matvec import apply_hmatrix_padded, conj_flags, is_aligned, work_list
 
 KERNEL_NAME = "hmatrix_product"  # K1
 K2_NAME = "hmatrix_product_complex"
@@ -89,9 +90,10 @@ ALIGNED_NAME = "hmatrix_product/aligned"  # K1-al
 
 MODES = ("fused", "per_bucket", "seq")
 
-# columns of one K1 launch (kMaxCols in csrc/hmatrix_product.cu); a wider x
-# runs in passes of this many columns
-K1_PASS_COLS = 128
+# columns of one launch by the data's dtype (an x row of kMaxCols = 128
+# floats in csrc/hmatrix_product.cu); a wider x runs in passes of this many
+# columns
+PASS_COLS = {torch.float32: 128, torch.complex64: 64}
 
 
 def launch_name(kernel: str, mode: str) -> str:
@@ -104,8 +106,6 @@ def launch_name(kernel: str, mode: str) -> str:
 LAUNCH_COUNTS = {launch_name(kern, mode): 0 for kern in (KERNEL_NAME, K2_NAME)
                  for mode in MODES}
 LAUNCH_COUNTS[ALIGNED_NAME] = 0
-
-_TABLE_FIELDS = 10  # int64 fields per bucket row (struct Bucket, K2's .cu)
 
 # the data dtype each kernel takes
 _KERNEL_OF = {torch.float32: KERNEL_NAME, torch.complex64: K2_NAME}
@@ -131,36 +131,30 @@ def kernel_mode() -> str:
 _LIBS = {}
 
 
-def _library(name):
-    """The kernel library `name`, built and loaded at first use, with its
-    functions' ctypes signatures set once."""
-    if name in _LIBS:
-        return _LIBS[name]
+def _library():
+    """The kernels' library (K1 and K2), built and loaded at first use, with
+    its functions' ctypes signatures set once."""
+    if KERNEL_NAME in _LIBS:
+        return _LIBS[KERNEL_NAME]
     from .cuda_build import load
 
-    lib = load(name)
+    lib = load(KERNEL_NAME)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    if name == KERNEL_NAME:
-        # items, n_items, x, lx, y, ly, k, swapped, symmetric, stream
-        whole = [p, ll, p, ll, p, ll, i, i, i, p]
-        signatures = (("launch", whole), ("launch_al", whole),
-                      ("launch_seq", whole),
-                      ("launch_per_bucket", [p, p, i, p, ll, p, ll, i, i, i,
-                                             p]))
-        pre, err = "hm_k1", lib.hm_error_string
-    else:
-        whole = [p, i, ll, p, ll, p, ll, i, i, i, i, i, i, i, p]
-        signatures = (("launch", whole), ("launch_seq", whole),
-                      ("launch_per_bucket", [p, p, i, p, ll, p, ll, i, i, i,
-                                             i, i, p]))
-        pre, err = "hm_k2", lib.hm_k2_error_string
-    for suffix, argtypes in signatures:
-        fn = getattr(lib, f"{pre}_{suffix}")
-        fn.argtypes = argtypes
-        fn.restype = i
-    err.argtypes = [i]
-    err.restype = ctypes.c_char_p
-    _LIBS[name] = lib
+    # items, n_items, x, lx, y, ly, k, swapped, symmetric[, conj_fwd,
+    # conj_tr], stream; per bucket: items, ranges, n_buckets, then the same
+    for pre, conj in (("hm_k1", []), ("hm_k2", [i, i])):
+        io = [p, ll, p, ll, i, i, i, *conj, p]
+        for suffix, argtypes in (("launch", [p, ll, *io]),
+                                 ("launch_seq", [p, ll, *io]),
+                                 ("launch_per_bucket", [p, p, i, *io])):
+            fn = getattr(lib, f"{pre}_{suffix}")
+            fn.argtypes = argtypes
+            fn.restype = i
+    lib.hm_k1_launch_al.argtypes = lib.hm_k1_launch.argtypes
+    lib.hm_k1_launch_al.restype = i
+    lib.hm_error_string.argtypes = [i]
+    lib.hm_error_string.restype = ctypes.c_char_p
+    _LIBS[KERNEL_NAME] = lib
     return lib
 
 
@@ -202,45 +196,40 @@ def _check_meta(t_off, s_off, mirror, nb, device):
                              f"tensor on {device}")
 
 
-def _bucket_rows(data, device, dtype):
-    """Host rows of the device bucket table, plus max dims and rank."""
-    rows, first, max_dim, max_r = [], 0, 1, 1
+def _check_buckets(data, device, dtype):
+    """Checks every stored tensor and its block metadata for the kernels;
+    returns the number of stored blocks."""
+    n_blocks = 0
     for kind in ("dense", "lr"):
         for entry in data[kind]:
             if kind == "dense":
                 D, t_off, s_off, mirror = entry
                 _check_operand(D, "D", device, 3, dtype)
                 nb, pt, ps = D.shape
-                a, v, r = D.data_ptr(), 0, 0
             else:
                 Ut, V, t_off, s_off, mirror = entry
                 _check_operand(Ut, "Ut", device, 3, dtype)
                 _check_operand(V, "V", device, 3, dtype)
-                nb, r, pt = Ut.shape
+                nb, _, pt = Ut.shape
                 ps = V.shape[2]
-                if V.shape[:2] != (nb, r):
+                if V.shape[:2] != Ut.shape[:2]:
                     raise ValueError(f"Ut {tuple(Ut.shape)} and V "
                                      f"{tuple(V.shape)} do not match")
-                a, v = Ut.data_ptr(), V.data_ptr()
-                max_r = max(max_r, r)
             if pt % 4 or ps % 4:
                 raise ValueError(f"padded block dims ({pt}, {ps}) must be "
                                  "multiples of 4")
             _check_meta(t_off, s_off, mirror, nb, device)
-            if nb == 0:
-                continue
-            rows.append((a, v, t_off.data_ptr(), s_off.data_ptr(),
-                         mirror.data_ptr(), first, nb, pt, ps, r))
-            first += nb
-            max_dim = max(max_dim, pt, ps)
-    return rows, first, max_dim, max_r
+            n_blocks += nb
+    return n_blocks
 
 
 def _item_records(data, order, device):
-    """K1's work items `order` ((n, 4) host array of (bucket row, block,
-    lo, hi), ops/matvec.py `work_list`) as the kernel reads them: an int64
+    """The kernels' work items `order` ((n, 4) host array of (bucket row,
+    block, lo, hi), ops/matvec.py `work_list`) as the kernel reads them: an
+    int64
     (n, 6) tensor on `device` of struct Item records
-    (csrc/hmatrix_product.cu), each naming its factor rows by address, its
+    (csrc/hmatrix_product.cu), each naming its factor rows by address (at
+    the data's element size: 4 bytes for K1, 8 for K2), its
     offsets (a dense slice's target already moved to its first row), rows,
     widths and flags (1: dense, 2: mirror), so that the kernel reads one
     record per item and nothing else about it.  Built on the host: one copy
@@ -293,24 +282,19 @@ class BucketTable:
     ends, max(t_off + pt, s_off + ps).  A product reads and writes both
     sides of every block (mirror terms, and the plain version's masked
     ones), so x and y must both hold `extent` rows; the wrapper checks that
-    on every call (K2 skips rows past the end of y and reads zeros past
-    the end of x; K1 copies x rows without a bound).  `aligned`: the data
-    is in the aligned low-rank layout, which a fused K1 product runs as
-    K1-al.  `work`: for real data, K1's work list (ops/matvec.py
+    on every call (the kernels copy x rows without a bound).  `aligned`:
+    the data is in the aligned low-rank layout, which a fused K1 product
+    runs as K1-al.  `work`: the kernels' work list (ops/matvec.py
     `work_list`), built on every device, which checks that every factor
     run is contiguous and 16-byte aligned.
 
     On CUDA, after every operand was checked, the table also holds what
-    the kernel reads: for K1 the work list as item records
-    (`_item_records`), largest first (`items`) and in bucket order
-    (`items_by_bucket`, whose bucket ranges `work.ranges` a per-bucket
-    product reads on the host); for K2 the device table of bucket
-    descriptors (struct Bucket in hmatrix_product_complex.cu) and its host
-    copy `host_rows`, which a per-bucket product reads for each launch's
-    block count and dims (no device read).  It names the data's tensors by
-    pointer: it stays valid while the data's containers and tensors do
-    (HMatrix builds one at its first product and drops it on copy and
-    whenever its buckets are replaced).
+    the kernel reads: the work list as item records (`_item_records`),
+    largest first (`items`) and in bucket order (`items_by_bucket`, whose
+    bucket ranges `work.ranges` a per-bucket product reads on the host).
+    It names the data's tensors by pointer: it stays valid while the
+    data's containers and tensors do (HMatrix builds one at its first
+    product and drops it on copy and whenever its buckets are replaced).
     """
 
     def __init__(self, data, device):
@@ -324,95 +308,55 @@ class BucketTable:
         self.dtype = _data_dtype(data)
         self.aligned = is_aligned(data)
         self.extent = _extent(data)
-        self.table = None
-        # K1's work list (real data), checked on every device
-        self.work = (work_list(data) if self.dtype is not None
-                     and not self.dtype.is_complex else None)
+        self.work = work_list(data) if self.dtype is not None else None
+        self.n_buckets = 0 if self.work is None else len(self.work.ranges)
         if device.type == "cuda":
             self.n_blocks = 0
             if self.dtype is not None:
                 _check_dtype(self.dtype, "the operator")
-                rows, self.n_blocks, self.max_dim, self.max_r = _bucket_rows(
-                    data, device, self.dtype)
-                self.n_buckets = len(rows)
-                if self.work is not None:
-                    self.items = _item_records(data, self.work.items, device)
-                    self.items_by_bucket = _item_records(
-                        data, self.work.by_bucket, device)
-                else:
-                    self.host_rows = np.ascontiguousarray(
-                        np.asarray(rows, dtype=np.int64).reshape(
-                            -1, _TABLE_FIELDS))
-                    self.table = torch.from_numpy(self.host_rows).to(device)
-
-
-def _conj_flags(trans: str, sym: str):
-    """(conjugate the x[s:] -> y[t:] direction, the x[t:] -> y[s:] one) of
-    K2: 'N' runs the main term forward and the mirror backward, 'T' / 'C'
-    the other way round; the main term is conjugated for 'C', the mirror
-    for (sym == 'H') != (trans == 'C') (plain version: conj_main,
-    conj_mirror)."""
-    conj_main = trans == "C"
-    conj_mirror = (sym == "H") != (trans == "C")
-    if trans == "N":
-        return False, conj_mirror
-    return conj_mirror, conj_main
-
-
-def _launch_k1(lib, mode, aligned, table, x, y, trans, sym, stream):
-    """K1's launches over the work list: 'fused' (K1-al on aligned data)
-    and 'seq' one launch per pass of K1_PASS_COLS columns, over the list
-    largest first and in bucket order; 'per_bucket' one per bucket and
-    pass.  Returns (rc, launches)."""
-    L, k = x.shape
-    io = (x.data_ptr(), L, y.data_ptr(), y.shape[0], k, int(trans != "N"),
-          int(sym != "N"))
-    passes = -(-k // K1_PASS_COLS)
-    n = len(table.work.items)
-    if mode == "per_bucket":
-        return lib.hm_k1_launch_per_bucket(
-            table.items_by_bucket.data_ptr(), table.work.ranges.ctypes.data,
-            table.n_buckets, *io, stream), table.n_buckets * passes
-    if mode == "seq":
-        return lib.hm_k1_launch_seq(table.items_by_bucket.data_ptr(), n, *io,
-                                    stream), passes
-    fn = lib.hm_k1_launch_al if aligned else lib.hm_k1_launch
-    return fn(table.items.data_ptr(), n, *io, stream), passes
+                self.n_blocks = _check_buckets(data, device, self.dtype)
+                self.items = _item_records(data, self.work.items, device)
+                self.items_by_bucket = _item_records(
+                    data, self.work.by_bucket, device)
 
 
 def _launch(name, mode, table, x, y, trans, sym):
-    """Kernel `name` in launch structure `mode` over `table`, x (L, k) into
-    the zeroed y (ny, k); x and y hold the kernel's dtype."""
-    lib = _library(name)
+    """Kernel `name` (K1 or K2) in launch structure `mode` over the work
+    list of `table`, x (L, k) into the zeroed y (ny, k); x and y hold the
+    kernel's dtype.  'fused' (K1-al on aligned real data) and 'seq' launch
+    once per pass of PASS_COLS columns, over the list largest first and in
+    bucket order; 'per_bucket' once per bucket and pass."""
+    lib = _library()
     aligned = name == KERNEL_NAME and mode == "fused" and table.aligned
     counter = ALIGNED_NAME if aligned else launch_name(name, mode)
     device = x.device
     L, k = x.shape
+    pre = "hm_k1" if name == KERNEL_NAME else "hm_k2"
+    io = (x.data_ptr(), L, y.data_ptr(), y.shape[0], k, int(trans != "N"),
+          int(sym != "N"))
+    if name == K2_NAME:
+        io += tuple(int(c) for c in conj_flags(trans, sym))
+    passes = -(-k // PASS_COLS[x.dtype])
+    n = len(table.work.items)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        if name == KERNEL_NAME:
-            rc, launches = _launch_k1(lib, mode, aligned, table, x, y, trans,
-                                      sym, stream)
-            err = lib.hm_error_string
+        if mode == "per_bucket":
+            rc = getattr(lib, f"{pre}_launch_per_bucket")(
+                table.items_by_bucket.data_ptr(),
+                table.work.ranges.ctypes.data, table.n_buckets, *io, stream)
+            launches = table.n_buckets * passes
+        elif mode == "seq":
+            rc = getattr(lib, f"{pre}_launch_seq")(
+                table.items_by_bucket.data_ptr(), n, *io, stream)
+            launches = passes
         else:
-            err = lib.hm_k2_error_string
-            io = (x.data_ptr(), L, y.data_ptr(), y.shape[0], k,
-                  int(trans != "N"), int(sym != "N"),
-                  *[int(c) for c in _conj_flags(trans, sym)])
-            if mode == "per_bucket":
-                rc = lib.hm_k2_launch_per_bucket(
-                    table.table.data_ptr(), table.host_rows.ctypes.data,
-                    table.n_buckets, *io, stream)
-            else:
-                fn = (lib.hm_k2_launch_seq if mode == "seq"
-                      else lib.hm_k2_launch)
-                rc = fn(table.table.data_ptr(), table.n_buckets,
-                        table.n_blocks, *io, table.max_dim, table.max_r,
-                        stream)
-            launches = table.n_buckets if mode == "per_bucket" else 1
+            fn = (lib.hm_k1_launch_al if aligned
+                  else getattr(lib, f"{pre}_launch"))
+            rc = fn(table.items.data_ptr(), n, *io, stream)
+            launches = passes
     if rc != 0:
         raise RuntimeError(f"{counter} launch failed: CUDA "
-                           f"error {rc} ({err(rc).decode()})")
+                           f"error {rc} ({lib.hm_error_string(rc).decode()})")
     LAUNCH_COUNTS[counter] += launches
 
 

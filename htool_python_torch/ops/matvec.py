@@ -144,18 +144,21 @@ def apply_hmatrix_padded(data, x_pad, ny_pad: int, trans: str, sym: str):
 
 
 # Rows of one work item at most: rank rows of a low-rank block, rows of a
-# dense one (kMaxRows in csrc/hmatrix_product.cu: the kernel keeps an
-# item's w = V x, (rows, k), in registers and shared memory).
+# dense one (8 x kRowsPerWarp in csrc/hmatrix_product.cu: the kernels keep
+# an item's w = V x, (rows, k), in registers and shared memory, and a
+# complex row's accumulators take twice a real one's registers).
 WORK_ROWS = 64
+WORK_ROWS_COMPLEX = 32
 
 
 @dataclasses.dataclass
 class WorkList:
-    """Kernel K1's work list over bucket data (`work_list`).
+    """The work list of kernels K1 and K2 over bucket data (`work_list`).
 
     Each item is (bucket row, block, lo, hi): rows [lo, hi) of one block,
     rank rows of a low-rank block (U V is the sum of its rank slices) or
-    rows of a dense one, at most WORK_ROWS of them.  Bucket rows number the
+    rows of a dense one, at most WORK_ROWS of them (WORK_ROWS_COMPLEX for
+    complex data).  Bucket rows number the
     non-empty buckets as the kernels' table does: dense buckets, then
     low-rank ones.  `items` is ordered largest first (by stored bytes),
     `by_bucket` in bucket order, `ranges[b]` is
@@ -186,7 +189,7 @@ def _check_runs(named):
 
 
 def work_list(data) -> WorkList:
-    """The work list of kernel K1 over `data` (see WorkList); raises
+    """The work list of kernels K1 and K2 over `data` (see WorkList); raises
     ValueError unless every factor run is contiguous and 16-byte aligned
     (`_check_runs`).  Host only: shapes and data pointers, no device
     read."""
@@ -207,8 +210,9 @@ def work_list(data) -> WorkList:
                 itemsize = Ut.element_size()
             if nb == 0:
                 continue
-            lo = np.arange(0, rows, WORK_ROWS)
-            hi = np.minimum(lo + WORK_ROWS, rows)
+            step = WORK_ROWS_COMPLEX if entry[0].is_complex() else WORK_ROWS
+            lo = np.arange(0, rows, step)
+            hi = np.minimum(lo + step, rows)
             blocks = np.repeat(np.arange(nb), len(lo))
             part = np.empty((len(blocks), 5), dtype=np.int64)
             part[:, 0] = row
@@ -235,19 +239,33 @@ def work_list(data) -> WorkList:
         nbytes=allp[order, 4])
 
 
+def conj_flags(trans: str, sym: str):
+    """(conjugate the x[s:] -> y[t:] direction, conjugate the x[t:] ->
+    y[s:] one) of a complex product: 'N' runs a block's main term forward
+    and its mirror backward, 'T' / 'C' the other way round; the main term
+    is conjugated for 'C', the mirror for (sym == 'H') != (trans == 'C')
+    (`apply_hmatrix_padded`'s conj_main, conj_mirror).  The kernels take
+    them as launch arguments."""
+    conj_main = trans == "C"
+    conj_mirror = (sym == "H") != (trans == "C")
+    if trans == "N":
+        return False, conj_mirror
+    return conj_mirror, conj_main
+
+
 def apply_work_list(data, wl: WorkList, x_pad, ny_pad: int, trans: str,
                     sym: str):
-    """The plain walk of K1's work list: y_pad = H^(trans) x_pad computed
-    item by item, each item's rows as the kernel splits them (items with
-    the same bucket and rows run as one batch).  Real data only (for real
-    data 'C' is 'T' and 'H' is 'S'); the same result as
-    `apply_hmatrix_padded`, which stays K1's plain version.  CPU tests use
-    it to check the decomposition."""
+    """The plain walk of the kernels' work list: y_pad = H^(trans) x_pad
+    computed item by item, each item's rows as the kernels split them
+    (items with the same bucket and rows run as one batch), each direction
+    of a block conjugated as `conj_flags` says (complex data; for real data
+    'C' is 'T' and 'H' is 'S').  The same result as `apply_hmatrix_padded`,
+    which stays the kernels' plain version.  CPU tests use it to check the
+    decomposition."""
     buckets = list(data["dense"]) + list(data["lr"])
     buckets = [e for e in buckets if e[0].shape[0]]
-    if any(e[0].is_complex() for e in buckets):
-        raise ValueError("the work list walks real data only (kernel K1)")
     dtype = result_dtype(data, x_pad.dtype)
+    conj_fwd, conj_tr = conj_flags(trans, sym)
     x = x_pad.to(dtype)
     y = torch.zeros((ny_pad, x.shape[1]), dtype=dtype, device=x.device)
     n_dense = sum(1 for e in data["dense"] if e[0].shape[0])
@@ -264,17 +282,17 @@ def apply_work_list(data, wl: WorkList, x_pad, ny_pad: int, trans: str,
         if b < n_dense:
             Dr = entry[0][blk, lo:hi].to(dtype)  # (nb, R, ps)
             ps = Dr.shape[2]
-            _scatter_add(y, t_off + lo, torch.einsum(
-                "nij,njk->nik", Dr, _gather(x, s_off, ps)) * fwd)
-            _scatter_add(y, s_off, torch.einsum(
-                "nij,nik->njk", Dr, _gather(x, t_off + lo, hi - lo)) * tr)
+            _scatter_add(y, t_off + lo, dense_block_term(
+                Dr, _gather(x, s_off, ps), conj_fwd) * fwd)
+            _scatter_add(y, s_off, dense_block_term_t(
+                Dr, _gather(x, t_off + lo, hi - lo), conj_tr) * tr)
         else:
             Ut = entry[0][blk, lo:hi].to(dtype)
             V = entry[1][blk, lo:hi].to(dtype)
             _scatter_add(y, t_off, lowrank_block_term(
-                Ut, V, _gather(x, s_off, V.shape[2])) * fwd)
+                Ut, V, _gather(x, s_off, V.shape[2]), conj_fwd) * fwd)
             _scatter_add(y, s_off, lowrank_block_term_t(
-                Ut, V, _gather(x, t_off, Ut.shape[2])) * tr)
+                Ut, V, _gather(x, t_off, Ut.shape[2]), conj_tr) * tr)
     return y
 
 

@@ -164,8 +164,11 @@ def bucket_cases(device, tiny):
     probe, probe_inputs = take_probe(device)
     out = {"take_probe": probe}
     if not tiny:
+        # the timed form: one device counter, checked once after the reps
+        fault = bv.fault_counter(device)
         out["take_probe_ms"] = cuda_ms(
-            lambda: bv.take_along_axis(*probe_inputs), reps=100)
+            lambda: bv.take_along_axis(*probe_inputs, fault=fault), reps=100)
+        bv.check_fault(fault, probe_inputs[0].shape[1])
     for kind, r, pt, ps, G in bv.CASES:
         slabs_np, offs_np, stored = bv.build_case(kind, total_mb, L, G, r,
                                                   pt, ps, rng)

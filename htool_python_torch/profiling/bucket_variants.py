@@ -322,7 +322,15 @@ def kernel_tolerance(kind, gather, term, accum, slabs, offs, x, L, G, r,
     return tol
 
 
+_LIBS = {}
+
+
 def _library():
+    """The library of P3 and P4, built and loaded at first use, with its
+    functions' ctypes signatures set once (P4's time is mostly the
+    host's, so nothing is redone per call)."""
+    if "bucket_variants" in _LIBS:
+        return _LIBS["bucket_variants"]
     from ..ops.cuda_build import load
 
     lib = load("bucket_variants")
@@ -332,6 +340,7 @@ def _library():
     lib.bv_launch.restype = lib.bv_take.restype = i
     lib.bv_error_string.argtypes = [i]
     lib.bv_error_string.restype = ctypes.c_char_p
+    _LIBS["bucket_variants"] = lib
     return lib
 
 
@@ -410,17 +419,36 @@ def take_along_axis_plain(x, idx):
     return x[rows, idx.long()]
 
 
-def take_along_axis(x, idx):
+def take_along_axis(x, idx, fault=None):
     """Kernel P4 on CUDA tensors, its plain version on CPU tensors:
-    out[i, j] = x[i, idx[i, j]] over int32 indices.  Raises IndexError for
-    an index outside the row: on CUDA the kernel counts them and the
-    wrapper reads the count, which waits for the kernel."""
+    out[i, j] = x[i, idx[i, j]] over int32 indices.
+
+    Without `fault` it raises IndexError for an index outside the row: on
+    CUDA the kernel counts them and the wrapper reads the count, which
+    waits for the kernel.  With `fault`, a caller's int32 counter of one
+    element on x's device (`fault_counter`), the count is added there and
+    nothing is read back: out-of-range entries come out 0, and the caller
+    checks the counter once, after many calls, with `check_fault`."""
     _check_take(x, idx)
+    if fault is not None and (fault.dtype != torch.int32
+                              or fault.numel() != 1
+                              or fault.device != x.device):
+        raise ValueError(f"fault must be one int32 on {x.device}, got "
+                         f"{fault.dtype} {tuple(fault.shape)} on "
+                         f"{fault.device}")
+    own = fault is None
+    if own:
+        if x.device.type == "cpu":
+            return take_along_axis_plain(x, idx)
+        fault = fault_counter(x.device)
     if x.device.type == "cpu":
-        return take_along_axis_plain(x, idx)
+        inside = (idx >= 0) & (idx < x.shape[1])
+        fault += (~inside).sum().to(torch.int32)
+        rows = torch.arange(x.shape[0])[:, None]
+        taken = x[rows, idx.long().clamp(0, x.shape[1] - 1)]
+        return torch.where(inside, taken, torch.zeros((), dtype=x.dtype))
     lib = _library()
     out = torch.empty(idx.shape, dtype=torch.float32, device=x.device)
-    fault = torch.zeros(1, dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
         rc = lib.bv_take(x.data_ptr(), x.shape[0], x.shape[1],
                          idx.data_ptr(), idx.shape[1], out.data_ptr(),
@@ -428,7 +456,19 @@ def take_along_axis(x, idx):
                          torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(lib, rc, P4_NAME)
     LAUNCH_COUNTS[P4_NAME] += 1
+    if own:
+        check_fault(fault, x.shape[1])
+    return out
+
+
+def fault_counter(device):
+    """A zeroed out-of-range counter for `take_along_axis(..., fault=)`."""
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
+def check_fault(fault, n):
+    """Raises IndexError if `fault` (see `take_along_axis`) counted any
+    index outside a row of n values: one read of the counter."""
     bad = int(fault.item())
     if bad:
-        raise _out_of_range(bad, x.shape[1])
-    return out
+        raise _out_of_range(bad, n)

@@ -1,7 +1,8 @@
-"""Kernels K1 and K2 against their plain version on the card, in each
-launch structure, K1-al on the aligned low-rank layout, the HODLR
-factorization through K1 and K1-al, a DDM solve on the golden data, and
-the profiling path's kernels P1-P4 (skips without a card).
+"""Kernels K1 and K2 (one body, csrc/hmatrix_product.cu) against their
+plain version on the card, in each launch structure, K1-al on the aligned
+low-rank layout, the HODLR factorization through K1 and K1-al, a DDM
+solve on the golden data, and the profiling path's kernels P1-P4 (skips
+without a card).
 
 Run on a machine with a CUDA device:
     python -m pytest --noconftest tests/test_torch_gpu.py
@@ -138,6 +139,67 @@ def test_k2_matches_plain_version(cuda_device):
     with pytest.raises(NotImplementedError, match="item 22"):
         cuda_matvec.apply_hmatrix_cuda(hm._data, x.to(torch.complex128), L,
                                        "N", symmetry, table)
+
+
+def _complex_x(device, L, n, k, seed):
+    g = torch.Generator(device).manual_seed(seed)
+    x = torch.zeros((L, k), dtype=torch.complex64, device=device)
+    x[:n] = torch.complex(torch.rand((n, k), device=device, generator=g),
+                          torch.rand((n, k), device=device, generator=g))
+    return x
+
+
+@pytest.mark.gpu
+def test_k2_on_the_work_list_at_wide_and_odd_k(cuda_device):
+    """K2 walks the same work list as K1 (its records at 8-byte elements):
+    FFMA up to 8 columns, 3xTF32 tensor cores from 9 over the interleaved
+    real columns, passes of 64 complex columns; every storage and trans
+    against the plain version."""
+    for (symmetry, UPLO), hm in _complex_operators(cuda_device).items():
+        L, n = hm._pad_len, hm.shape[0]
+        table = hm._bucket_table()
+        assert len(table.items) == len(table.work.items) > 0
+        for trans in ("N", "T", "C"):
+            for k in (5, 9, 17, 33, 64, 65, 128):
+                x = _complex_x(cuda_device, L, n, k, k)
+                before = cuda_matvec.LAUNCH_COUNTS[cuda_matvec.K2_NAME]
+                y = cuda_matvec.apply_hmatrix_cuda(hm._data, x, L, trans,
+                                                   symmetry, table)
+                assert (cuda_matvec.LAUNCH_COUNTS[cuda_matvec.K2_NAME]
+                        == before + -(-k // 64))
+                y_plain = apply_hmatrix_padded(hm._data, x, L, trans,
+                                               symmetry)
+                err = (y - y_plain).abs().max() / y_plain.abs().max()
+                assert err <= 1e-5, (symmetry, UPLO, trans, k, float(err))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["fused", "per_bucket", "seq"])
+def test_k2_empty_buckets_and_no_columns(cuda_device, launch_mode, mode):
+    """Empty buckets launch nothing and change nothing; k = 0 and data
+    with only empty buckets give zeros without a launch."""
+    launch_mode(mode)
+    hm = _complex_operators(cuda_device, n=2000)[("H", "L")]
+    data, L, n = hm._data, hm._pad_len, hm.shape[0]
+    meta = (torch.zeros(0, dtype=torch.int32, device=cuda_device),
+            torch.zeros(0, dtype=torch.int32, device=cuda_device),
+            torch.zeros(0, dtype=torch.bool, device=cuda_device))
+    D = data["dense"][0][0]
+    Ut, V = data["lr"][0][:2]
+    empty = {"dense": [(D[:0], *meta)], "lr": [(Ut[:0], V[:0], *meta)]}
+    padded = {"dense": empty["dense"] + data["dense"],
+              "lr": empty["lr"] + data["lr"]}
+    x = _complex_x(cuda_device, L, n, 3, 0)
+    y = cuda_matvec.apply_hmatrix_cuda(padded, x, L, "C", "H")
+    y_plain = apply_hmatrix_padded(data, x, L, "C", "H")
+    assert (y - y_plain).abs().max() <= 1e-5 * y_plain.abs().max()
+    before = dict(cuda_matvec.LAUNCH_COUNTS)
+    y0 = cuda_matvec.apply_hmatrix_cuda(padded, x[:, :0].contiguous(), L,
+                                        "N", "H")
+    assert y0.shape == (L, 0) and y0.dtype == torch.complex64
+    y_empty = cuda_matvec.apply_hmatrix_cuda(empty, x, L, "N", "H")
+    assert y_empty.dtype == torch.complex64 and not y_empty.abs().any()
+    assert cuda_matvec.LAUNCH_COUNTS == before
 
 
 @pytest.mark.gpu
@@ -679,3 +741,10 @@ def test_take_along_axis_matches_plain_version(cuda_device):
     idx[2, 5] = 333
     with pytest.raises(IndexError):
         bv.take_along_axis(x, idx)
+    # the timed form: no read per call, the count checked once
+    fault = bv.fault_counter(cuda_device)
+    for _ in range(3):
+        out = bv.take_along_axis(x, idx, fault=fault)
+    assert out[2, 5] == 0 and int(fault.item()) == 3
+    with pytest.raises(IndexError):
+        bv.check_fault(fault, 333)
