@@ -113,6 +113,24 @@ Phases, in this order, one line each (`phase <name> {json}`):
                 |f| through the distributed operator, and the same residual
                 with the operator applied in float64 (the plain version on
                 the host), both <= 1e-5.
+  ddm_geneo:    the ddm problem (N points, P = 4, eps 1e-4, f32) with
+                overlapping subdomains — two rounds of 8-nearest-neighbour
+                growth around each partition (tools/generate_test_data.py's
+                recipe, `overlap_decomposition`), dense local matrices from
+                the generator — through DDMSolverBuilder(op, block_diagonal,
+                generator, ovr, c2o, neighbors, intersections): a one-level
+                ASM solve, then build_coarse_space with
+                GeneoCoarseSpaceDenseBuilder (DAiD against Ki = A[ovr, ovr]
+                in float64, 16 vectors a subdomain, scipy eigh on the host)
+                and GeneoCoarseOperatorBuilder (E = Z^T A Z through K1 at k =
+                64), then two-level solves cold, warm and with 4 right-hand
+                sides (`ddm_geneo_solve` lines, the checks of `ddm`); the
+                setup split (overlap, Ki, DAiD and eigh per subdomain, QR,
+                E, E's LU), K1's launches in E, each subdomain's 16th
+                eigenvalue, E and the coarse term on a random r against
+                float64 on the CPU (within 1e-5), K1's device ms at k = 64
+                on each block row beside its bound, and torch.linalg.eigh of
+                one subdomain's pencil on the card (a measurement);
   k1al_check:   kernel K1-al (K1 on the aligned low-rank layout,
                 ops/matvec.py align_lowrank) against its plain version on
                 the same data, and K1 on the canonical layout against its
@@ -188,6 +206,9 @@ DDM_ITERATIONS = 44
 # the true residual |A x - f| / |f| of the f32 solve, recomputed through
 # the f32 product: GMRES stops at tol 1e-6 on its own estimate
 DDM_TRUE_RES_MAX = 1e-5
+# GenEO vectors a subdomain of the ddm_geneo phase: 4 x 16 = 64, one
+# GeneoCoarseOperatorBuilder.COLUMN_CHUNK, so E's product is K1 at k = 64
+DDM_GENEO_NU = 16
 HLU_EPS = 1e-3  # tests/test_hier_local_solver.py:65-96
 DDM_HIER_EPS = 1e-4  # tests/test_hier_local_solver.py:21-62
 DDM_HIER_MAX_IT = 200
@@ -949,6 +970,312 @@ def ddm(T, torch, n, device, counts):
          host_ms_per_iteration=solves[1]["ms_per_iteration"] - op_ms,
          block_row_check=cases, solves=solves)
     return cases
+
+
+def overlap_decomposition(points, cluster, P, n_layers=2, n_neighbors=8):
+    """Overlapping subdomains (ovr_to_global, cluster_to_ovr, neighbors,
+    intersections) by the recipe of tools/generate_test_data.py:71-118:
+    each partition's dofs in cluster order, then `n_layers` rounds of
+    growth to every point's `n_neighbors` nearest neighbours, the ghosts
+    appended in ascending user order.  The neighbours come from a k-d tree,
+    where the recipe sorts a dense N x N distance matrix (9.6 GB at N =
+    20 000)."""
+    from scipy.spatial import cKDTree
+
+    N = points.shape[1]
+    _, knn = cKDTree(points.T).query(points.T, k=n_neighbors + 1)
+    check((knn[:, 0] == np.arange(N)).all(),
+          "overlap: a point's nearest neighbour is not itself")
+    knn = knn[:, 1:]
+    perm = cluster.get_permutation()
+    ovr, c2o = [], []
+    for p in range(P):
+        node = cluster.get_cluster_on_partition(p)
+        own = perm[node.get_offset():node.get_offset() + node.get_size()]
+        in_sub = np.zeros(N, dtype=bool)
+        in_sub[own] = True
+        for _ in range(n_layers):
+            in_sub[np.unique(knn[in_sub].ravel())] = True
+        ghosts = np.setdiff1d(np.flatnonzero(in_sub), own)
+        ovr.append(np.concatenate([own, ghosts]).astype(np.int64))
+        c2o.append(np.arange(len(own), dtype=np.int64))
+    neighbors, intersections = [], []
+    for p in range(P):
+        nbr, inter = [], []
+        for q in range(P):
+            shared = np.flatnonzero(np.isin(ovr[p], ovr[q])) if q != p else []
+            if len(shared):
+                nbr.append(q)
+                inter.append(shared.astype(np.int64))
+        neighbors.append(np.asarray(nbr, dtype=np.int64))
+        intersections.append(inter)
+    return ovr, c2o, neighbors, intersections
+
+
+def ddm_geneo(T, torch, n, device, counts):
+    """The ddm phase's problem with overlapping subdomains (dense local
+    matrices from the generator) and the GenEO coarse space: a one-level
+    solve, then `build_coarse_space` with DDM_GENEO_NU vectors a subdomain
+    (E = Z^T A Z through K1 at k = 64), two-level solves cold, warm and with
+    4 right-hand sides; K1's launches counted around those; then the checks
+    of E and of the coarse term against float64 on the CPU, K1's device
+    time at k = 64 on the block rows, and torch.linalg.eigh on the card for
+    one subdomain's pencil (a measurement only)."""
+    from htool_python_torch.models.geometry import \
+        create_random_points_in_sphere
+    from htool_python_torch.models.kernels import inverse_distance_kernel
+    from htool_python_torch.ops import cuda_matvec
+    from htool_python_torch.ops.cuda_matvec import apply_hmatrix_cuda
+    from htool_python_torch.solvers import coarse
+
+    P = 4
+    points = create_random_points_in_sphere(n, np.random.RandomState(1))
+    cb = T.ClusterTreeBuilder()
+    cb.set_maximal_leaf_size(128)
+    cluster = cb.create_cluster_tree(points, 2, size_of_partition=P)
+    gen = T.KernelGenerator(inverse_distance_kernel(0.1), points, points,
+                            device=device)
+    hb = T.HMatrixTreeBuilder(DDM_EPS, 10.0, "N", "N", device=device)
+    hb.set_dtype(torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    setup = {}
+    t0 = time.perf_counter()
+    approx = T.DefaultApproximationBuilder(gen, cluster, cluster, hb)
+    op = approx.distributed_operator
+    block_diag = approx.block_diagonal_hmatrix
+    setup["block_rows_and_diagonal"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ovr, c2o, nbr, inter = overlap_decomposition(points, cluster, P)
+    setup["overlap"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    solver = T.DDMSolverBuilder(op, block_diag, gen, ovr, c2o, nbr,
+                                inter).solver
+    setup["subdomain_matrices"] = time.perf_counter() - t0
+    solver.set_hpddm_args(
+        "-hpddm_krylov_method gmres -hpddm_schwarz_method asm "
+        f"-hpddm_max_it {DDM_MAX_IT} -hpddm_gmres_restart 60 "
+        f"-hpddm_tol {DDM_TOL}")
+    t0 = time.perf_counter()
+    solver.facto_one_level()
+    torch.cuda.synchronize()
+    setup["facto_one_level"] = time.perf_counter() - t0
+    op64 = float64_copy(T, torch, op)
+    rng = np.random.RandomState(3)
+
+    def solve(label, x_ref, correction):
+        solver.set_hpddm_args(f"-hpddm_schwarz_coarse_correction {correction}")
+        k = x_ref.shape[1]
+        f = op @ x_ref
+        if k == 1:
+            x_ref, f = x_ref[:, 0], f[:, 0]
+        x = np.zeros_like(f)
+        before = dict(cuda_matvec.LAUNCH_COUNTS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.solve(x, f)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        info = solver.get_information()
+        its = int(info["Nb_it"])
+        r = (op @ x if k > 1 else op * x) - f
+        true_res = float(np.linalg.norm(r) / np.linalg.norm(f))
+        r64 = op64 @ x.astype(np.float64).reshape(n, k) - f.reshape(n, k)
+        true_res64 = float(np.linalg.norm(r64) / np.linalg.norm(f))
+        out = dict(solve=label, columns=k, iterations=its, seconds=seconds,
+                   ms_per_iteration=seconds * 1e3 / its,
+                   coarse_correction=info["Coarse_correction"],
+                   coarse_vectors=int(info["Nb_coarse_vectors"]),
+                   solver_residual=float(info["Residual_estimate"]),
+                   true_residual=true_res, true_residual_f64=true_res64,
+                   solution_rel_error=float(np.linalg.norm(x - x_ref)
+                                            / np.linalg.norm(x_ref)),
+                   launches={key: v - before[key] for key, v in
+                             cuda_matvec.LAUNCH_COUNTS.items()
+                             if v > before[key]})
+        emit("ddm_geneo_solve", **out)
+        check(np.isfinite(x).all(), f"ddm_geneo {label}: non-finite solution")
+        check(its <= DDM_MAX_IT and out["solver_residual"] <= DDM_TOL,
+              f"ddm_geneo {label}: GMRES did not converge: {out}")
+        check(true_res <= DDM_TRUE_RES_MAX
+              and true_res64 <= DDM_TRUE_RES_MAX,
+              f"ddm_geneo {label}: true residual {true_res} (f64 operator "
+              f"{true_res64}) above {DDM_TRUE_RES_MAX}")
+        return out
+
+    stamps, e_stamp = [], {}
+
+    class TimedBuilder(T.GeneoCoarseSpaceDenseBuilder):
+        """The library's builder, timed; the kept vectors' eigenvalues by
+        their Rayleigh quotients on the lower triangles eigh reads (DAiD,
+        from an 'N' operator, is symmetric only to eps)."""
+
+        def compute_coarse_space(self, Ai, Bi):
+            t0 = time.perf_counter()
+            super().compute_coarse_space(Ai, Bi)
+            t1 = time.perf_counter()
+            v = self._coarse_space
+            As = np.tril(Ai) + np.tril(Ai, -1).T
+            lam = (np.einsum("ij,ij->j", v, As @ v)
+                   / np.einsum("ij,ij->j", v, Bi @ v))
+            stamps.append(dict(start=t0, end=t1, eigh_s=t1 - t0,
+                               eigenvalues=lam))
+
+    class TimedOperatorBuilder(T.GeneoCoarseOperatorBuilder):
+        """The library's E, timed, with its kernel launches."""
+
+        def build_coarse_operator(self, Z):
+            before = dict(cuda_matvec.LAUNCH_COUNTS)
+            t0 = time.perf_counter()
+            E = super().build_coarse_operator(Z)  # numpy: synchronized
+            e_stamp.update(start=t0, end=time.perf_counter(), E=E, launches={
+                key: v - before[key] for key, v in
+                cuda_matvec.LAUNCH_COUNTS.items() if v > before[key]})
+            return E
+
+    # the path: counts from 0 here, read after the last two-level solve
+    cuda_matvec.reset_launch_counts()
+    one_level = solve("one_level", rng.rand(n, 1).astype(np.float32), "none")
+    t0 = time.perf_counter()
+    Ki = []
+    for p in range(P):
+        K = np.empty((len(ovr[p]), len(ovr[p])))
+        gen.build_submatrix(ovr[p], ovr[p], K)
+        Ki.append(K)
+    setup["Ki"] = time.perf_counter() - t0
+    builders = [TimedBuilder(len(c2o[p]), len(ovr[p]), block_diag[p], Ki[p],
+                             "S", "L", geneo_nu=DDM_GENEO_NU)
+                for p in range(P)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver.build_coarse_space(builders, TimedOperatorBuilder(op))
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    setup["build_coarse_space"] = t_end - t0
+    ends = [t0] + [st["end"] for st in stamps[:-1]]
+    setup["DAiD"] = [st["start"] - e for st, e in zip(stamps, ends)]
+    setup["eigh"] = [st["eigh_s"] for st in stamps]
+    setup["qr"] = e_stamp["start"] - stamps[-1]["end"]
+    setup["E"] = e_stamp["end"] - e_stamp["start"]
+    setup["E_lu"] = t_end - e_stamp["end"]
+    x_warm = rng.rand(n, 1).astype(np.float32)
+    solves = [solve("cold", x_warm, "additive"),
+              solve("warm", x_warm, "additive"),
+              solve("blocked", rng.rand(n, 4).astype(np.float32), "additive")]
+    counts.update(cuda_matvec.LAUNCH_COUNTS)
+    check(e_stamp["launches"].get(cuda_matvec.KERNEL_NAME, 0) > 0,
+          f"E's build launched {e_stamp['launches']}, not K1")
+    check(counts.get(cuda_matvec.KERNEL_NAME, 0) > 0,
+          "the ddm_geneo path never launched kernel K1")
+
+    Z, _ = solver._coarse
+    nc = Z.shape[1]
+    # the same assembly (weights, zero extension, QR, keep rule) on the CPU
+    # in float64, from the vectors the builders kept
+
+    class Kept(coarse.VirtualGeneoCoarseSpaceBuilder):
+        def __init__(self, p):
+            super().__init__(len(c2o[p]), len(ovr[p]), None)
+            self.vectors = builders[p]._coarse_space.astype(np.float64)
+
+        def compute_coarse_space(self, hmatrix_callback):
+            self.set_coarse_space(self.vectors)
+
+    Z64 = coarse.assemble_geneo_coarse_space(solver,
+                                             [Kept(p) for p in range(P)])
+    check(nc >= 1 and Z64 is not None and nc == Z64.shape[1],
+          f"ddm_geneo: {nc} coarse vectors on the card, "
+          f"{None if Z64 is None else Z64.shape[1]} in float64 on the CPU")
+    Zc = Z.double().cpu().numpy()
+    projector_err = float(np.linalg.norm(Zc @ (Zc.T @ Z64) - Z64)
+                          / np.linalg.norm(Z64))
+    E = e_stamp["E"]
+    E64 = Zc.T @ (op64 @ Zc)
+    e_err = float(np.linalg.norm(E.astype(np.float64) - E64)
+                  / np.linalg.norm(E64))
+    check(e_err <= KERNEL_TOL,
+          f"ddm_geneo: E on the card {e_err} from its float64 CPU product")
+    g = torch.Generator(device).manual_seed(7)
+    r = torch.rand((n, 1), dtype=torch.float32, device=device, generator=g)
+    zc = solver._coarse_device(r).double().cpu().numpy()
+    r64 = r.double().cpu().numpy()
+
+    def coarse_err(E_):
+        z64 = Zc @ np.linalg.solve(E_, Zc.T @ r64)
+        return float(np.linalg.norm(zc - z64) / np.linalg.norm(z64))
+
+    # Z E^-1 Z^T r in float64 on the CPU from the card's Z and E; and from
+    # E's float64 product, where E's f32 rounding enters times cond(E)
+    coarse_errs = {"card_E": coarse_err(E.astype(np.float64)),
+                   "E_f64": coarse_err(E64)}
+    cond_E = float(np.linalg.cond(E64))
+    check(coarse_errs["card_E"] <= KERNEL_TOL,
+          f"ddm_geneo: the coarse term on the card {coarse_errs} from its "
+          "float64 CPU counterpart")
+
+    # K1 at E's width on each block row alone, by device ms, and the
+    # device apply of one 64-column chunk
+    k = T.GeneoCoarseOperatorBuilder.COLUMN_CHUNK
+    rows = []
+    for p in range(P):
+        h = op._global_to_local[p][0].hmatrix
+        data, table = h._product_data(), h._bucket_table()
+        x = torch.rand((h._pad_len, k), dtype=torch.float32, device=device,
+                       generator=g)
+        bound, bound_by = product_bound(data, h._pad_len, k)
+        rows.append(dict(block_row=p, ms=device_ms(
+            torch, lambda: apply_hmatrix_cuda(data, x, h._pad_len, "N",
+                                              h.symmetry, table)),
+            bound_ms=bound, bound_by=bound_by))
+    apply = op.build_device_apply()
+    Zk = torch.rand((n, k), dtype=torch.float32, device=device, generator=g)
+    k1_k64 = dict(k=k, block_rows=rows, ms=sum(r_["ms"] for r_ in rows),
+                  bound_ms=sum(r_["bound_ms"] for r_ in rows),
+                  apply_ms=device_ms(torch, lambda: apply(Zk)))
+
+    # measurement only: the first subdomain's pencil on the card, reduced
+    # to a standard problem by a Cholesky of Ki, in float64; DAiD's lower
+    # triangle, as scipy's eigh reads it (the block diagonal of an 'N'
+    # operator is symmetric only to eps)
+    DAiD = torch.as_tensor(coarse._embedded_dirichlet(
+        builders[0], solver.subdomains[0]), dtype=torch.float64, device=device)
+    DAiD = torch.tril(DAiD) + torch.tril(DAiD, -1).T
+    K = torch.as_tensor(Ki[0], device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    L = torch.linalg.cholesky(K)
+    C = torch.linalg.solve_triangular(L, DAiD, upper=False)
+    C = torch.linalg.solve_triangular(L, C.T, upper=False)
+    w, _ = torch.linalg.eigh(C)
+    torch.cuda.synchronize()
+    eigh_s = time.perf_counter() - t0
+    wk = torch.linalg.eigvalsh(K)
+    eigh_card = dict(subdomain=0, m=int(K.shape[0]), s=eigh_s,
+                     cond_Ki=float(wk[-1] / wk[0]),
+                     top_rel_diff=float(np.max(np.abs(
+                         np.sort(w.cpu().numpy())[::-1][:DDM_GENEO_NU]
+                         - stamps[0]["eigenvalues"])
+                         / np.abs(stamps[0]["eigenvalues"]))))
+    del DAiD, K, L, C, wk
+    torch.cuda.empty_cache()
+    emit("ddm_geneo", N=n, partitions=P, epsilon=DDM_EPS, eta=10.0, leaf=128,
+         dtype="float32", schwarz="asm", coarse_correction="additive",
+         geneo_nu=DDM_GENEO_NU, tol=DDM_TOL, restart=60,
+         subdomain_sizes=[s.size for s in solver.subdomains],
+         owned_sizes=[len(c) for c in c2o], setup_s=setup,
+         coarse_vectors=nc, coarse_vectors_f64=Z64.shape[1],
+         projector_rel_err=projector_err,
+         eigenvalue_16=[float(st["eigenvalues"][-1]) for st in stamps],
+         eigenvalues_kept=[st["eigenvalues"].tolist() for st in stamps],
+         E_launches=e_stamp["launches"], E_rel_err_f64=e_err,
+         coarse_term_rel_err_f64=coarse_errs, cond_E=cond_E, k1_k64=k1_k64,
+         iterations={"ddm_block_jacobi": DDM_ITERATIONS,
+                     "one_level_overlap": one_level["iterations"],
+                     "two_level": solves[1]["iterations"]},
+         warm_ms_per_iteration=solves[1]["ms_per_iteration"],
+         eigh_on_card=eigh_card,
+         peak_memory_GB=torch.cuda.max_memory_allocated() / 1e9,
+         build_profile=approx.build_profile, solves=[one_level] + solves)
+    return k1_k64
 
 
 def k1al_cases(torch, operators, label, ks=K1_KS, reps=20):
@@ -1814,6 +2141,8 @@ def main(argv=None) -> int:
     row_cases = distributed(T, torch, args.n_dist, device, dist_counts)
     ddm_counts = {}
     row_cases += ddm(T, torch, args.n_ddm, device, ddm_counts)
+    geneo_counts = {}
+    geneo_k64 = ddm_geneo(T, torch, args.n_ddm, device, geneo_counts)
 
     hlu_counts = {}
     hm_lu, hm_lu_s = hlu(T, torch, args.n_hlu, device, hlu_counts)
@@ -1851,7 +2180,10 @@ def main(argv=None) -> int:
         dict(entry(KERNEL_NAME, "fused", k1_src, pallas + "538",
                    counts[KERNEL_NAME], cases, timing),
              max_abs_err_complex_x=max(c["max_abs_err"] for c in cx_cases),
-             max_abs_err_block_rows=block_row_err("fused")),
+             max_abs_err_block_rows=block_row_err("fused"),
+             launches_ddm_geneo=geneo_counts[KERNEL_NAME],
+             ddm_block_rows_k64={key: geneo_k64[key] for key in
+                                 ("ms", "bound_ms", "apply_ms")}),
         dict(entry(K2_NAME, "fused", k1_src, pallas + "571",
                    helm_counts[K2_NAME], k2, helm_timing),
              helmholtz_by_k={k: dict(ms=c["ms"], bound_ms=c["bound_ms"],

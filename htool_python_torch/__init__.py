@@ -9,9 +9,9 @@ f32) and K2 (complex64), one body templated on the element type in
 csrc/hmatrix_product.cu, through ops/cuda_matvec.py on CUDA tensors, and their plain PyTorch version on CPU tensors (K1-al, K1 on
 the aligned low-rank layout, with config.matvec_aligned_layout).  H-LU /
 H-Cholesky (hmatrix/factorization.py, HODLR by randomized peeling in
-ops/hodlr.py), distributed operators (parallel/) and the one-level
-Schwarz DDM solver with its dense and hierarchical local solvers and
-GMRES / CG (solvers/) run their products through the same kernels.  Entry points run
+ops/hodlr.py), distributed operators (parallel/) and the one- and
+two-level (GenEO) Schwarz DDM solver with its dense and hierarchical
+local solvers and GMRES / CG (solvers/) run their products through the same kernels.  Entry points run
 on CUDA unless the caller passes device='cpu'.  Nothing here imports JAX or the reference package.
 
 The names mirror the reference's public surface for the parts ported so
@@ -59,6 +59,12 @@ from .parallel.local_operator import (
 )
 
 # Solvers
+from .solvers.coarse import (
+    GeneoCoarseOperatorBuilder,
+    GeneoCoarseSpaceDenseBuilder,
+    VirtualGeneoCoarseSpaceBuilder,
+    VirtualGeneoCoarseSpaceDenseBuilder,
+)
 from .solvers.ddm import DDMSolver, DDMSolverBuilder, \
     DDMSolverWithDenseLocalSolver
 
@@ -78,6 +84,10 @@ ComplexRestrictedGlobalToLocalOperator = RestrictedGlobalToLocalOperator
 ComplexVirtualLocalToLocalOperator = VirtualLocalToLocalOperator
 ComplexDDMSolverBuilder = DDMSolverBuilder
 ComplexDDMSolverWithDenseLocalSolver = DDMSolverWithDenseLocalSolver
+ComplexGeneoCoarseSpaceDenseBuilder = GeneoCoarseSpaceDenseBuilder
+ComplexVirtualGeneoCoarseSpaceDenseBuilder = VirtualGeneoCoarseSpaceDenseBuilder
+ComplexVirtualGeneoCoarseSpaceBuilder = VirtualGeneoCoarseSpaceBuilder
+ComplexGeneoCoarseOperatorBuilder = GeneoCoarseOperatorBuilder
 Solver = DDMSolver
 ComplexSolver = DDMSolver
 

@@ -1,2 +1,3 @@
-"""Solvers: Krylov methods (GMRES, CG), HPDDM-style options and the
-one-level Schwarz DDM solver (dense and hierarchical local solvers)."""
+"""Solvers: Krylov methods (GMRES, CG), HPDDM-style options, the
+one-level Schwarz DDM solver (dense and hierarchical local solvers) and
+its GenEO two-level coarse space."""

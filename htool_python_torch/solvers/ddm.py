@@ -20,8 +20,9 @@ The one-level preconditioner has the reference's two local-solver tiers:
   `config.hodlr_threshold`, hmatrix/factorization.py) and an application
   is, per subdomain, gather -> HODLR solve -> weighted scatter-add.
 
-Not ported yet, and raising NotImplementedError: the GenEO coarse space
-`build_coarse_space` (ROADMAP item 16).  Without a coarse space,
+The two-level preconditioner adds the GenEO coarse term Z E^-1 Z^H r
+(`build_coarse_space`, solvers/coarse.py): Z and the LU of E = Z^H A Z
+stay on the operator's device in its dtype.  Without a coarse space,
 `-hpddm_schwarz_coarse_correction` runs the one-level solve, as the
 reference does.
 """
@@ -40,11 +41,9 @@ from ..hmatrix.hmatrix import HMatrix
 from ..ops.hodlr import hodlr_solve
 from ..parallel.builders import PerPartition
 from ..parallel.distributed_operator import DistributedOperator
+from .coarse import assemble_geneo_coarse_space
 from .krylov import cg, cg_device, compose_operators, gmres, gmres_device
 from .options import DEFAULTS, parse_hpddm_args
-
-_GENEO = ("two-level GenEO coarse spaces (build_coarse_space, coarse.py) are "
-          "not ported yet (ROADMAP queue 1, item 16)")
 
 
 class _Subdomain:
@@ -132,6 +131,7 @@ class DDMSolver:
         self._facto = None  # dense tier: (kind, solver tensors, idx_pad, mp)
         self._weights = None  # {'ras': (P, mp), 'asm': (P, mp)} tensors
         self._hier = []  # hierarchical tier: one dict per subdomain
+        self._coarse = None  # (Z (n, nc), LU of E): tensors on the device
         self._info = {}
 
     # ------------------------------------------------------------------
@@ -242,17 +242,35 @@ class DDMSolver:
             out.index_add_(0, hs["idx"], z.to(dtype))
         return out[:n]
 
+    def _coarse_device(self, r2d):
+        """The coarse term Z E^-1 Z^H r2d, (n, k) -> (n, k) tensors."""
+        Z, (lu, piv) = self._coarse
+        dtype = torch.promote_types(r2d.dtype, Z.dtype)
+        Z = Z.to(dtype)
+        c = Z.conj().T @ r2d.to(dtype)
+        return Z @ torch.linalg.lu_solve(lu.to(dtype), piv, c)
+
     def _device_preconditioner(self):
-        """(n, k) -> (n, k) tensor preconditioner, or None.  The reference
-        adds a coarse term only where a coarse space was built
-        (`-hpddm_schwarz_coarse_correction` with none runs one-level); no
-        coarse space can be built yet (`build_coarse_space`), so the option
-        leaves the one-level preconditioner as it is."""
+        """(n, k) -> (n, k) tensor preconditioner, or None: the one-level
+        term where ASM / RAS is factorized, plus the coarse term where a
+        coarse space was built and a coarse correction is asked for (with
+        no Schwarz method, the coarse term alone), as the reference does."""
         method = self.options.get("schwarz_method", "none")
-        if method not in ("asm", "ras") or (self._facto is None
-                                            and not self._hier):
+        coarse = self.options.get("schwarz_coarse_correction", "none")
+        use_one = method in ("asm", "ras") and (self._facto is not None
+                                                or bool(self._hier))
+        use_coarse = coarse != "none" and self._coarse is not None
+        if not use_one and not use_coarse:
             return None
-        return lambda r2d: self._one_level_device(r2d, method).to(r2d.dtype)
+
+        def M(r2d):
+            z = self._one_level_device(r2d, method) if use_one else None
+            if use_coarse:
+                zc = self._coarse_device(r2d)
+                z = zc if z is None else z + zc
+            return z.to(r2d.dtype)
+
+        return M
 
     def _preconditioner(self):
         """Host wrapper (numpy in, numpy out) of the device preconditioner,
@@ -272,7 +290,22 @@ class DDMSolver:
 
     # ------------------------------------------------------------------
     def build_coarse_space(self, space_builders, operator_builder) -> None:
-        raise NotImplementedError(_GENEO)
+        """Two-level GenEO: the local eigenproblems give Z, then E = Z^H A
+        Z (`operator_builder.build_coarse_operator`); Z and the LU of E are
+        kept on the operator's device in E's dtype, which the device route
+        gives in the operator's.  `space_builders`: one builder per
+        partition (a single builder when there is one partition).  With no
+        coarse vector the state is left as it is."""
+        if not isinstance(space_builders, (list, tuple)):
+            space_builders = [space_builders]
+        Z = assemble_geneo_coarse_space(self, space_builders)
+        if Z is None or Z.shape[1] == 0:
+            return
+        device = self.distributed_operator.device
+        E = torch.as_tensor(operator_builder.build_coarse_operator(Z),
+                            device=device)
+        self._coarse = (torch.as_tensor(Z, device=device).to(E.dtype),
+                        torch.linalg.lu_factor(E))
 
     # ------------------------------------------------------------------
     def solve(self, x, b, hpddm_args: str = "") -> None:
@@ -369,7 +402,8 @@ class DDMSolver:
             "Relative_residual": str(max(residuals) if residuals else 0.0),
             "Schwarz_method": opts.get("schwarz_method", "none"),
             "Coarse_correction": opts.get("schwarz_coarse_correction", "none"),
-            "Nb_coarse_vectors": "0",
+            "Nb_coarse_vectors": str(self._coarse[0].shape[1]
+                                     if self._coarse else 0),
         }
         if estimates is not None:
             # GMRES's own last residual estimate |g_{j+1}| / |b| (worst

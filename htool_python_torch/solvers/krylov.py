@@ -13,8 +13,13 @@ match the reference's.
   recurrence (rotations, residual estimates, masks) on the host, in the
   working dtype: each inner iteration copies the new Hessenberg column
   ((j+2) x k values) to the host, which is also the iteration's one
-  synchronisation, the early-exit test.  CG reads one flag per column per
-  iteration for the same test.
+  synchronisation, the early-exit test.  The update of x is the
+  combination of the preconditioned vectors M v_j that the Arnoldi process
+  multiplied by A (kept beside the basis), where the reference applies M
+  once more to V y: the same x in exact arithmetic, but in float32 the
+  extra application's rounding, amplified by A, lifted the true residual
+  |b - A x| an order of magnitude above GMRES's own estimate.  CG reads
+  one flag per column per iteration for the same test.
 * `gmres` / `cg`: host recurrences for custom Python operators (numpy).
 
 Nothing is cached between solves.
@@ -76,6 +81,7 @@ def _gmres_cycle(A_fn, M_fn, m, max_it, x, b, bnorm, conv, niter, est,
     conv_t = torch.as_tensor(conv, device=device)
     safe_beta = torch.where(beta_t > 0, beta_t, torch.ones_like(beta_t))
     V = torch.zeros((m + 1, n, k), dtype=dtype, device=device)
+    MV = torch.zeros((m, n, k), dtype=dtype, device=device)  # M v_j
     V[0] = torch.where(conv_t[None, :], torch.zeros((), dtype=dtype,
                                                     device=device),
                        r / safe_beta[None, :].to(dtype))
@@ -92,7 +98,8 @@ def _gmres_cycle(A_fn, M_fn, m, max_it, x, b, bnorm, conv, niter, est,
     j = 0
     while j < m and not np.all(conv | brk | (it_start + j >= max_it)):
         active = (~conv) & (~brk) & (it_start + j < max_it)
-        w = A_fn(M_fn(V[j]))
+        MV[j] = M_fn(V[j])
+        w = A_fn(MV[j])
         # CGS2: classical Gram-Schmidt with one reorthogonalization, each
         # pass one batched contraction over the basis built so far
         Vj = V[:j + 1]
@@ -165,8 +172,8 @@ def _gmres_cycle(A_fn, M_fn, m, max_it, x, b, bnorm, conv, niter, est,
     gk = torch.from_numpy(np.ascontiguousarray(gsys.T[..., None]))
     y = torch.linalg.solve_triangular(R, gk, upper=True)[..., 0]  # (k, m)
     # rows past the iterations run this cycle are exactly zero
-    dx = torch.einsum("jnk,kj->nk", V[:j], y[:, :j].to(device))
-    return x + M_fn(dx), conv, niter, est
+    dx = torch.einsum("jnk,kj->nk", MV[:j], y[:, :j].to(device))
+    return x + dx, conv, niter, est
 
 
 def gmres_device(A_fn, b, M_fn=None, tol=1e-6, max_it=100, restart=40,

@@ -9,8 +9,8 @@ GMRES converges to 1e-6 and the solution is within 10 eps of sol.bin.  On
 the reference's own operator (its block rows carried over with `interop`)
 the iteration counts equal the reference solver's, with the dense tier
 and with the hierarchical tier (subdomains above `ddm_local_dense_max`
-factorized by HODLR; thresholds lowered in both packages).  What is not
-ported raises: GenEO (ROADMAP item 16), an unknown -hpddm_ option.
+factorized by HODLR; thresholds lowered in both packages).  An unknown
+-hpddm_ option raises.  GenEO two-level solves: test_torch_geneo.py.
 """
 
 import copy
@@ -405,15 +405,27 @@ def test_what_is_not_ported_raises(load_data_solver, golden_data_root, mu,
     assert solver._facto is not None and solver._hier == []
     assert solver.get_information()["Nb_it"] == its
     assert np.linalg.norm(x_hier - x_dense) <= 1e-10 * np.linalg.norm(x_dense)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        solver.build_coarse_space([], None)
     # a coarse correction without a coarse space runs one-level, as the
     # reference does (it raised NotImplementedError before)
     x_coarse = _solve(solver, f, symmetry, "asm",
                       coarse_correction="additive")
     assert solver.get_information()["Nb_it"] == its
+    assert solver.get_information()["Nb_coarse_vectors"] == "0"
     assert np.linalg.norm(x_coarse - x_dense) <= 1e-12 * np.linalg.norm(
         x_dense)
+    # once NotImplementedError (item 16); now a GenEO coarse space on the
+    # block-Jacobi subdomains (no overlap: Bi = I, the 2 largest
+    # eigenvectors of each diagonal block), used by the next solve
+    sizes = [s.size for s in solver.subdomains]
+    solver.build_coarse_space(
+        [T.GeneoCoarseSpaceDenseBuilder(m, m, h, np.eye(m), symmetry, UPLO,
+                                        geneo_nu=2)
+         for m, h in zip(sizes, approx.block_diagonal_hmatrix)],
+        T.GeneoCoarseOperatorBuilder(approx.distributed_operator))
+    x_two = _solve(solver, f, symmetry, "asm", coarse_correction="additive")
+    assert solver.get_information()["Nb_coarse_vectors"] == "4"
+    op = approx.distributed_operator
+    assert np.linalg.norm(op * x_two - f) / np.linalg.norm(f) < _TOL
     with pytest.raises(ValueError, match="-hpddm_geneo_nu"):
         solver.set_hpddm_args("-hpddm_geneo_nu 2")
 

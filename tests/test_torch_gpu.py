@@ -1,8 +1,8 @@
 """Kernels K1 and K2 (one body, csrc/hmatrix_product.cu) against their
 plain version on the card, in each launch structure, K1-al on the aligned
-low-rank layout, the HODLR factorization through K1 and K1-al, a DDM
-solve on the golden data, and the profiling path's kernels P1-P4 (skips
-without a card).
+low-rank layout, the HODLR factorization through K1 and K1-al, one- and
+two-level (GenEO) DDM solves on the golden data, and the profiling path's
+kernels P1-P4 (skips without a card).
 
 Run on a machine with a CUDA device:
     python -m pytest --noconftest tests/test_torch_gpu.py
@@ -404,6 +404,82 @@ def test_golden_ddm_solve_on_the_card(cuda_device, symmetry, schwarz):
     assert cuda_matvec.LAUNCH_COUNTS[cuda_matvec.launch_name(
         cuda_matvec.KERNEL_NAME if symmetry == "S" else cuda_matvec.K2_NAME,
         "fused")] > before
+    err = np.linalg.norm(x - sol) / np.linalg.norm(sol)
+    assert err < 10 * eps, (err, info)
+
+
+def _golden_overlap(cluster, P, size=400, seed=0):
+    """(ovr_to_global, cluster_to_ovr, neighbors, intersections) of the
+    golden problem's points and P-partition cluster, by the recipe of
+    tools/generate_test_data.py: each partition's dofs, then two rounds of
+    growth to every point's 8 nearest neighbours."""
+    rng = np.random.RandomState(seed)
+    pts = rng.randn(3, size)
+    pts /= np.linalg.norm(pts, axis=0, keepdims=True)
+    pts += 0.1 * rng.rand(3, size)
+    d = np.linalg.norm(pts[:, :, None] - pts[:, None, :], axis=0)
+    np.fill_diagonal(d, np.inf)
+    knn = np.argsort(d, axis=1)[:, :8]
+    perm = cluster.get_permutation()
+    ovr, c2o = [], []
+    for p in range(P):
+        node = cluster.get_cluster_on_partition(p)
+        own = perm[node.get_offset():node.get_offset() + node.get_size()]
+        in_sub = np.zeros(size, dtype=bool)
+        in_sub[own] = True
+        for _ in range(2):
+            in_sub[np.unique(knn[in_sub].ravel())] = True
+        ovr.append(np.concatenate(
+            [own, np.setdiff1d(np.flatnonzero(in_sub), own)]))
+        c2o.append(np.arange(len(own)))
+    neighbors = [[q for q in range(P)
+                  if q != p and np.isin(ovr[p], ovr[q]).any()]
+                 for p in range(P)]
+    intersections = [[np.flatnonzero(np.isin(ovr[p], ovr[q]))
+                      for q in neighbors[p]] for p in range(P)]
+    return ovr, c2o, neighbors, intersections
+
+
+@pytest.mark.gpu
+def test_two_level_golden_solve_on_the_card(cuda_device):
+    """The symmetric golden problem on P = 2 overlapping subdomains with
+    the GenEO coarse space (2 vectors a subdomain, Ki = A[ovr, ovr]) in
+    float32 on the card: E = Z^T A Z launches K1, Z and E's LU stay on the
+    card in float32, GMRES converges to 1e-6 and the solution is within
+    10 eps of sol."""
+    A, rhs, sol, cluster = _golden_problem(False, 2)
+    A, rhs, sol = A.real, rhs.real, sol.real
+    ovr, c2o, neighbors, intersections = _golden_overlap(cluster, 2)
+    eps = 1e-6
+    hb = T.HMatrixTreeBuilder(eps, 10, "S", "L", device=cuda_device)
+    hb.set_dtype(np.float32)
+    gen = _MatrixGenerator(A)
+    approx = T.DefaultApproximationBuilder(gen, cluster, cluster, hb)
+    op, diag = approx.distributed_operator, approx.block_diagonal_hmatrix
+    solver = T.DDMSolverBuilder(op, diag, gen, ovr, c2o, neighbors,
+                                intersections).solver
+    name = cuda_matvec.launch_name(cuda_matvec.KERNEL_NAME, "fused")
+    before = cuda_matvec.LAUNCH_COUNTS[name]
+    solver.build_coarse_space(
+        [T.GeneoCoarseSpaceDenseBuilder(len(c2o[p]), len(ovr[p]), diag[p],
+                                        A[np.ix_(ovr[p], ovr[p])], "S", "L",
+                                        geneo_nu=2) for p in range(2)],
+        T.GeneoCoarseOperatorBuilder(op))
+    assert cuda_matvec.LAUNCH_COUNTS[name] > before
+    Z, (lu, _) = solver._coarse
+    assert Z.shape == (len(rhs), 4)
+    assert Z.device.type == lu.device.type == "cuda"
+    assert Z.dtype == lu.dtype == torch.float32
+    solver.set_hpddm_args("-hpddm_krylov_method gmres -hpddm_schwarz_method "
+                          "asm -hpddm_schwarz_coarse_correction additive "
+                          "-hpddm_max_it 200 -hpddm_tol 1e-6")
+    solver.facto_one_level()
+    f = rhs.astype(np.float32)
+    x = np.zeros_like(f)
+    solver.solve(x, f)
+    info = solver.get_information()
+    assert info["Nb_coarse_vectors"] == "4"
+    assert float(info["Residual_estimate"]) <= 1e-6, info
     err = np.linalg.norm(x - sol) / np.linalg.norm(sol)
     assert err < 10 * eps, (err, info)
 
