@@ -11,7 +11,9 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
 Phases, in this order, one line each (`phase <name> {json}`):
   device:       card name and power limit, kernel build seconds, ptxas
-                reports, and the reconstruction error of a complex64 SVD on
+                reports (and `ptxas_xgemm`: registers and spills of each
+                instantiation of P3's 'xgemm' kernel), and the
+                reconstruction error of a complex64 SVD on
                 the card (torch.linalg.svd, and the port's double-precision
                 svd);
   main_path:    the headline pipeline — a random cloud in the unit ball,
@@ -37,7 +39,9 @@ Phases, in this order, one line each (`phase <name> {json}`):
                 1e-5 relative, P2 within 1e-5 of 1e-30 sum|A|, P3 within
                 1e-5 relative plus, for 'xgemm', the TF32 bound of
                 csrc/bucket_variants.cu, K1 within 1e-5 of 'base', P4
-                exact;
+                exact; each P3 case with its GB/s over the stored bytes and
+                its share of P1's best rate in this phase, and 'xgemm' with
+                its bound by TF32 operations beside the bytes';
   k1_buckets:   K1 on each bucket of the headline operator alone (and,
                 after `helmholtz`, K2 on each bucket of the Helmholtz
                 operator with a complex x; after `hlu`, K1 on the hlu
@@ -248,6 +252,27 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_by_kernel(report, key):
+    """{kernel: "registers ...; spills ..."} of the ptxas report's entry
+    functions whose mangled name holds `key`, named by their template
+    arguments (xgemm_kernel<kind, gather, accum>)."""
+    import re
+
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            name = m.group(1) if key in m.group(1) else None
+            continue
+        if name and ("registers" in line or "spill" in line):
+            args = ",".join(re.findall(r"Li(\d+)E", name))
+            label = f"{key}<{args}>"
+            out[label] = (out.get(label, "") + "; " + line.split(":")[-1]
+                          .strip()).strip("; ")
+    return out
 
 
 def device_profile(torch, fn, reps=10, top=6):
@@ -1819,6 +1844,8 @@ def profiling_checks(torch, device):
                    lambda: stream.stream_probe(bufs, x, step_mb),
                    lambda: stream.stream_probe_plain(bufs, x, step_mb),
                    lambda: [torch.sum(b, 0) for b in bufs]))
+        case = cases["P1"][f"s{step_mb}MB_b{n_buf}"]
+        case["GBs"] = nbytes / case["ms"] / 1e6
         check(cases["P1"][f"s{step_mb}MB_b{n_buf}"]["max_rel_err"]
               <= KERNEL_TOL, f"P1 disagrees with its plain version at "
               f"({step_mb}, {n_buf})")
@@ -1843,6 +1870,7 @@ def profiling_checks(torch, device):
         check(cases["P2"][name]["max_rel_err"] <= KERNEL_TOL,
               f"P2 disagrees with its plain version on {name}")
         del A
+    p1_gbs = max(c["GBs"] for c in cases["P1"].values())
     L = bv.LENGTH
     for kind, r, pt, ps, G in bv.CASES:
         nb, per = bv.case_blocks(kind, bv.TOTAL_MB, G, r, pt, ps)
@@ -1852,11 +1880,32 @@ def profiling_checks(torch, device):
                                    generator=g, dtype=torch.int32)
                      for w in (pt, ps))
         x = torch.randn((1, L), device=device, generator=g)
-        bound = (nb * per + 2 * 4 * L + 8 * nb) / HBM_BYTES_PER_S * 1e3
+        nbytes = nb * per + 2 * 4 * L + 8 * nb
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        # 'xgemm' computes every tile of its block-diagonal GEMMs: G times
+        # the flops of 'vpu', in TF32
+        flops = 2 * nb * G * (r * (ps + pt) if kind == "lr" else pt * ps)
+        xgemm_bounds = dict(bytes_bound_ms=bound,
+                            ops_bound_ms=flops / TF32_FLOPS * 1e3,
+                            flops=flops, bound_by="bytes" if bound >= flops
+                            / TF32_FLOPS * 1e3 else "operations")
+
+        def rates(fields, term):
+            """The case's read rate over the stored bytes and its share of
+            P1's best rate in this run; for 'xgemm' both bounds."""
+            fields["GBs"] = nbytes / fields["ms"] / 1e6
+            fields["share_of_p1"] = fields["GBs"] / p1_gbs
+            if term == "xgemm":
+                fields.update(xgemm_bounds,
+                              bound_ms=max(bound, xgemm_bounds["ops_bound_ms"]))
+            return fields
+
         for name, gather, term, accum in bv.VARIANTS:
             if accum == "skip":
-                record("P3", f"{kind}/{name}", bound_ms=bound, **sink_case(
-                    torch, kind, gather, term, offs, x, L, G, r, pt, ps))
+                record("P3", f"{kind}/{name}", **rates(dict(
+                    bound_ms=bound, **sink_case(torch, kind, gather, term,
+                                                offs, x, L, G, r, pt, ps)),
+                    term))
                 continue
             args = (kind, gather, term, accum, slabs, offs, x, L, G, r, pt,
                     ps)
@@ -1867,12 +1916,13 @@ def profiling_checks(torch, device):
             fields = dict(within_tolerance=bool((diff <= tol).all()))
             if term == "xgemm":
                 fields.update(tf32_check(args, diff, y_plain, tol))
-            record("P3", f"{kind}/{name}", max_abs_err=float(diff.max()),
-                   max_rel_err=float(diff.max() / max(
-                       float(y_plain.abs().max()), 1e-30)),
-                   bound_ms=bound, **fields, **_timed_case(
-                       lambda: bv.bucket_variant(*args),
-                       lambda: bv.bucket_variant_plain(*args)))
+            record("P3", f"{kind}/{name}", **rates(dict(
+                max_abs_err=float(diff.max()),
+                max_rel_err=float(diff.max() / max(
+                    float(y_plain.abs().max()), 1e-30)),
+                bound_ms=bound, **fields, **_timed_case(
+                    lambda: bv.bucket_variant(*args),
+                    lambda: bv.bucket_variant_plain(*args))), term))
             check(all(v for k, v in fields.items() if k != "tf32_sigmas"),
                   f"P3 disagrees with its plain version on {kind}/{name}, "
                   f"or its check would pass a wrong output: {fields}")
@@ -1883,11 +1933,12 @@ def profiling_checks(torch, device):
         y_base = bv.bucket_variant(kind, "roll", "vpu", "roll", slabs, offs,
                                    x, L, G, r, pt, ps)
         err = float((y_k1.reshape(1, L) - y_base).abs().max())
-        record("P3", f"{kind}/k1", max_abs_err=err,
-               max_rel_err=err / float(y_base.abs().max()), bound_ms=bound,
-               **_timed_case(lambda: apply_hmatrix_cuda(
-                   data, x_pad, L, "N", "N", table),
-                   lambda: apply_hmatrix_padded(data, x_pad, L, "N", "N")))
+        record("P3", f"{kind}/k1", **rates(dict(
+            max_abs_err=err, max_rel_err=err / float(y_base.abs().max()),
+            bound_ms=bound, **_timed_case(lambda: apply_hmatrix_cuda(
+                data, x_pad, L, "N", "N", table),
+                lambda: apply_hmatrix_padded(data, x_pad, L, "N", "N"))),
+            "vpu"))
         check(cases["P3"][f"{kind}/k1"]["max_rel_err"] <= KERNEL_TOL,
               f"K1 and the 'base' variant disagree on the {kind} bucket")
         del slabs, data, table
@@ -1954,6 +2005,10 @@ def profiling_entries(counts, checks, result):
                                if "ms" in v}),
         dict(entry("P3", "bucket_variant", "bucket_variants.cu",
                    pal + "5.py:225 (launch; make_kernel :144)", "lr/base"),
+             xgemm={kind: {key: checks["P3"][f"{kind}/xgemm"][key] for key in
+                           ("ms", "bound_ms", "bound_by", "bytes_bound_ms",
+                            "ops_bound_ms", "share_of_p1", "tf32_sigmas")}
+                    for kind in ("lr", "dense")},
              chain_ms_by_case={f"{kind}/{k}": v["ms"]
                                for kind in ("lr", "dense")
                                for k, v in result["bucket"][kind].items()
@@ -2051,6 +2106,8 @@ def main(argv=None) -> int:
          ptxas={lib: [ln.strip() for ln in cuda_build.ptxas_report(lib)
                       .splitlines() if "registers" in ln or "spill" in ln]
                 for lib in cuda_build.SOURCES},
+         ptxas_xgemm=ptxas_by_kernel(
+             cuda_build.ptxas_report("bucket_variants"), "xgemm_kernel"),
          svd_check=svd_check(torch, device))
 
     if args.k1_buckets_only:

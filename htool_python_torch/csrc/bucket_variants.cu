@@ -22,8 +22,9 @@
 //           group of G blocks on the tensor cores: Wp = V_flat (G r, ps) @
 //           X^T (ps, G), keep each block's own column (the diagonal
 //           blocks), then w_bd (G, G r) @ Ut_flat (G r, pt) (dense: D_flat
-//           (G pt, ps) @ X^T, keep the diagonal), one CTA per group, in
-//           nvcuda::wmma TF32 fragments (m16n16k8) summing in f32;
+//           (G pt, ps) @ X^T, keep the diagonal), every tile computed, in
+//           TF32 mma.sync summing in f32; its own persistent kernel
+//           (`xgemm_kernel`, below);
 //           'skip' gives x's gathered values plus 1e-30 * sum(the group's
 //           slab), one CTA per group;
 //   accum:  'roll' adds each block's result into y at t_off with f32
@@ -32,9 +33,9 @@
 //           rows approach); 'skip' adds nothing.
 // The probes 'static' and 'skip' give "wrong" products on purpose: the
 // point is attribution.  With accum 'skip' nothing is stored, and the
-// compiler would drop every load whose value is unused, so each CTA
-// writes the sum of its results to its slot of `sink` (the TPU kernel's
-// sum(slab) * 1e-30 kept the same dependence).
+// compiler would drop every load whose value is unused, so the results of
+// each group of G blocks (of each block for 'vpu') are summed into its slot
+// of `sink` (the TPU kernel's sum(slab) * 1e-30 kept the same dependence).
 // Out-of-range segments read zeros (x outside [0, L)) and drop rows (y
 // outside [0, L)), as the plain version does.
 //
@@ -50,14 +51,73 @@
 //
 // What bounds them.  P3 reads each stored byte once (384 MiB in the
 // reference's cases) and does 2 flops per entry for 'vpu': bytes / 3.35
-// TB/s, 0.120 ms.  'xgemm' does G times the flops of 'vpu' (6.4 GFLOP
-// for the lr case: in f32 on the CUDA cores, 67 TFLOP/s, that alone would
-// take 0.096 ms), hence the tensor cores (495 TFLOP/s in TF32).  P4 moves
-// a few KiB: launch latency bounds it.
+// TB/s, 0.120 ms.  'xgemm' does G times the flops of 'vpu': 2 nb G r (ps +
+// pt) for 'lr', 6.4 GFLOP in the reference's case (in f32 on the CUDA
+// cores, 67 TFLOP/s, that alone would take 0.096 ms), 2 nb G pt ps for
+// 'dense', 3.2 GFLOP; in TF32 on the tensor cores (495 TFLOP/s) 0.013 and
+// 0.0065 ms, so it too is bound by its bytes.  P4 moves a few KiB: launch
+// latency bounds it.
+//
+// The 'xgemm' kernel (`xgemm_kernel`).  Written to stream at the card's
+// read rate with the tensor cores as a side cost:
+//  * A persistent grid: one CTA per SM (the ring takes the SM's shared
+//    memory), walking groups b, b + grid, ...; with accum 'skip' it writes
+//    one sum per group into sink[group].
+//  * A ring of TMA stages guarded by full / empty `mbarrier`s, one block's
+//    slab a stage (32 KiB 'lr', 64 KiB 'dense' in the reference's cases; 4
+//    and 3 stages): the producer warp's lane 0 issues one 2-D
+//    `cp.async.bulk.tensor` per 32-column strip of the slab (8 'lr', 4
+//    'dense') from a tensor map of the slabs (nb rows x W floats, boxes of
+//    32 columns x the slab's rows) with the 128-byte swizzle: 16-byte chunk
+//    q of row m lands at chunk q ^ (m % 8), so that the A fragments (8 rows
+//    of one chunk) and Ut's B fragments hit 32 distinct banks.  A tensor
+//    map, not one 1-D bulk copy per padded row (the first design): 128 row
+//    copies of 512 bytes a dense block held the ring to 0.178 ms where one
+//    copy a block streams at 0.134 (profiling/xgemm_variants.py, PERF.md).
+//  * The group's G x segments are staged once per group (gather 'roll' or
+//    'take', as 'vpu' stages them) by the 8 consumer warps, rounded to TF32
+//    there, into padded rows (max(ps, pt) + 4 floats: 4 mod 8, so X's
+//    fragments hit distinct banks too), while the producer keeps the ring
+//    filling.
+//  * Consumers run mma.sync.m16n8k8 TF32 from shared memory, each operand
+//    rounded once (to nearest, as cvt.rna), summing in f32.  'lr', block g
+//    of the group: the r x G tile V_g X^T with the warps splitting the k8
+//    steps (warp w takes steps w, w + 8, ...; V_g and X each read once), the
+//    kept column g read from the accumulator registers by the m16n8 layout
+//    (lanes t == (g % 8) / 2) into a per-warp partial in shared memory;
+//    after one barrier of the consumers, out (G x pt) += w_bd_g (G x r)
+//    Ut_g, the block's k-chunk of the second GEMM computed in full with A
+//    formed in registers (row g = the sum of the 8 partials, the other rows
+//    0; a k8 step takes w's and Ut's rows k0 + 2t, k0 + 2t + 1 for its
+//    logical columns t, t + 4, so that w is one float2 and Ut's swizzled
+//    rows hit distinct banks) and out kept in registers across the group
+//    (each warp holds its n8 tiles warp + 8 j over all G rows; G <= 32 and
+//    pt <= 256). At the group's end out goes through X into y, so that each
+//    atomic instruction adds 32 consecutive floats of one row (one f32
+//    atomic per block output row, as 'base'): the accumulator layout's own
+//    atomics (8 rows an instruction) took 0.08 ms more.  'dense', block g:
+//    D_g X^T over all of k, a warp per m16 tile of rows (D_g read once), the
+//    kept column added into y at once, one atomic per row.
+//  * The consumers set their fragments' addresses once per block (the
+//    swizzle reduces to a per-lane XOR), and round to TF32 by an integer
+//    add and mask rather than cvt.rna (the same result for finite values):
+//    'lr' 0.246 -> 0.203 and 0.205 -> 0.188 ms (profiling/xgemm_variants.py,
+//    PERF.md).  What still holds 'lr' is that instruction stream: with no
+//    arithmetic the ring streams at 0.146 ms, issuing every mma twice adds
+//    0.035, and each GEMM of a 32 KiB block takes a warp about 1 500
+//    cycles, near the 1.6 us the block takes to stream.
+//  * Registers and spills (nvcc -Xptxas -v, sm_90a, CUDA 12.8): the 18
+//    instantiations of `xgemm_kernel` (kind x gather x accum) use 108-110
+//    registers ('lr': out's 32 floats a thread) and 77-100 ('dense'), no
+//    spills, no stack frame; the 288-thread CTA may have up to 224.  Shared
+//    memory, set at launch: 'lr' 4 stages of 32 768 bytes and X 33 280
+//    (166 560 in all), 'dense' 3 stages of 65 536 and X 8 448 (206 240): one
+//    CTA per SM.  chip_smoke.py's `device` phase prints the report
+//    (`ptxas_xgemm`).
 //
 // Tolerances.  'vpu' and 'skip' agree with the plain version to f32
 // summation round-off (1e-5 relative; the atomics add in a varying
-// order); with accum 'skip' the per-CTA sums in `sink` are checked
+// order); with accum 'skip' the sums in `sink` are checked
 // instead of y.  'xgemm' rounds both operands of each product to TF32
 // (unit round-off u = 2^-11) in both GEMMs: V, x, then w = V x and Ut
 // (dense: D and x).  The worst case, a few u times sum |terms|, exceeds
@@ -70,12 +130,12 @@
 //        -Xcompiler -fPIC -o libbucket_variants.so bucket_variants.cu
 // (done at first use by htool_python_torch/ops/cuda_build.py).
 
+#include <cuda.h>  // CUtensorMap (the driver itself is reached through the runtime)
 #include <cuda_runtime.h>
-#include <mma.h>
+
+#include <cstdint>
 
 namespace {
-
-using namespace nvcuda;
 
 enum { kLr = 0, kDense = 1 };                       // kind
 enum { kGatherRoll = 0, kGatherTake = 1, kGatherNone = 2 };
@@ -84,7 +144,6 @@ enum { kAccRoll = 0, kAccStatic = 1, kAccSkip = 2 };  // accum
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 16 * 16;  // one warp's accumulator tile in shared memory
 
 struct Case {
     const float* slabs;  // (nb, rows, W)
@@ -92,7 +151,7 @@ struct Case {
     const int* s_off;    // (nb,)
     const float* x;      // (L,), 16-byte aligned
     float* y;            // (L,), zeroed
-    float* sink;         // accum 'skip': one float per CTA
+    float* sink;         // accum 'skip': one float per block ('vpu') or group
     int L, nb, G, r, pt, ps, rows, W;
 };
 
@@ -159,15 +218,29 @@ __device__ __forceinline__ float4 x_quad(const Case& c, int s) {
     }
 }
 
-// dst[g*width + j] = x[s_off[first + g] + j] for g < n_seg, j < width.
-template <int GATHER>
+// v rounded to TF32 (10 stored mantissa bits, to nearest, ties away from
+// zero), as the tensor cores take it: the bits of a float.  For finite v
+// this is cvt.rna.tf32.f32 done by an integer add and mask, which the
+// consumers issue faster (profiling/xgemm_variants.py, PERF.md).
+__device__ __forceinline__ uint32_t tf32(float v) {
+    return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// dst[g*stride + j] = x[s_off[first + g] + j] for g < n_seg, j < width
+// (stride and width multiples of 4), rounded to TF32 with ROUND; threads 0
+// .. kThreads - 1 take part.
+template <int GATHER, bool ROUND = false>
 __device__ void stage_segments(float* dst, const Case& c, long long first, int n_seg,
-                               int width) {
+                               int width, int stride) {
     const int w4 = width / 4;
-    float4* d4 = reinterpret_cast<float4*>(dst);
+#pragma unroll 4
     for (int e = threadIdx.x; e < n_seg * w4; e += kThreads) {
         const int g = e / w4, q = e - g * w4;
-        d4[e] = x_quad<GATHER>(c, c.s_off[first + g] + 4 * q);
+        float4 v = x_quad<GATHER>(c, c.s_off[first + g] + 4 * q);
+        if constexpr (ROUND)
+            v = make_float4(__uint_as_float(tf32(v.x)), __uint_as_float(tf32(v.y)),
+                            __uint_as_float(tf32(v.z)), __uint_as_float(tf32(v.w)));
+        reinterpret_cast<float4*>(dst + g * stride)[q] = v;
     }
 }
 
@@ -193,7 +266,7 @@ __device__ void vpu_block(const Case& c, long long i, float* smem, float& dep) {
     const int s = c.s_off[i], t = c.t_off[i];
     float* xs = smem;  // roll: (ps,)
     if constexpr (GATHER == kGatherRoll) {
-        stage_segments<kGatherRoll>(xs, c, i, 1, c.ps);
+        stage_segments<kGatherRoll>(xs, c, i, 1, c.ps, c.ps);
         __syncthreads();
     }
     auto xq = [&](int q) -> float4 {
@@ -227,126 +300,6 @@ __device__ void vpu_block(const Case& c, long long i, float* smem, float& dep) {
     }
 }
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 8, wmma::precision::tf32, wmma::row_major>;
-using FragBc = wmma::fragment<wmma::matrix_b, 16, 16, 8, wmma::precision::tf32, wmma::col_major>;
-using FragBr = wmma::fragment<wmma::matrix_b, 16, 16, 8, wmma::precision::tf32, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 8, float>;
-
-template <typename Frag>
-__device__ __forceinline__ void to_tf32(Frag& f) {
-#pragma unroll
-    for (int q = 0; q < f.num_elements; ++q) f.x[q] = wmma::__float_to_tf32(f.x[q]);
-}
-
-// The first GEMM of 'xgemm': P (n_rows, G) = A (n_rows, ps) @ X^T (ps, G)
-// with A's row m at a_row(m) (row-major, leading dimension W) and X the
-// staged (G, ps) segments (X^T column-major); keeps, as the reference's
-// masked row sum does, for each row m only the column g = m / per of its
-// own block: diag[m] = sum_n (n == g ? P[m, n] : 0).  Every tile of P is
-// computed, as in the reference's formulation.  A warp per 16 rows.
-template <typename ARow>
-__device__ void gemm_keep_diagonal(ARow a_row, int n_rows, int per, const float* X, int G,
-                                   int ps, int W, float* scratch, float* diag) {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    FragA a;
-    FragBc b;
-    FragC acc;
-    for (int mt = warp; mt < n_rows / 16; mt += kWarps) {
-        const float* A = a_row(mt * 16);
-        const int g = mt * 16 / per;  // the block of these 16 rows (per % 16 == 0)
-        float keep = 0.0f;
-        for (int nt = 0; nt < G / 16; ++nt) {
-            wmma::fill_fragment(acc, 0.0f);
-            for (int k0 = 0; k0 < ps; k0 += 8) {
-                wmma::load_matrix_sync(a, A + k0, W);
-                wmma::load_matrix_sync(b, X + nt * 16 * ps + k0, ps);
-                to_tf32(a);
-                to_tf32(b);
-                wmma::mma_sync(acc, a, b, acc);
-            }
-            wmma::store_matrix_sync(scratch, acc, 16, wmma::mem_row_major);
-            __syncwarp();
-            if (lane < 16)
-                for (int col = 0; col < 16; ++col)
-                    keep += (nt * 16 + col == g) ? scratch[lane * 16 + col] : 0.0f;
-            __syncwarp();
-        }
-        if (lane < 16) diag[mt * 16 + lane] = keep;
-    }
-}
-
-// term 'xgemm', kind 'lr': group grp of G blocks, one CTA.  Shared memory:
-// X (G, max(ps, pt)) -- the segments, later the results --, w_col (G r),
-// w_bd (G, G r), one 16 x 16 tile per warp.
-template <int GATHER, int ACCUM>
-__device__ void xgemm_lr(const Case& c, long long grp, float* smem, float& dep) {
-    const int G = c.G, r = c.r, pt = c.pt, ps = c.ps, W = c.W, Gr = c.G * c.r;
-    const int warp = threadIdx.x >> 5;
-    const long long first = grp * G;
-    const float* slab = c.slabs + first * c.rows * (long long)W;
-    float* X = smem;
-    float* wcol = X + G * max(ps, pt);
-    float* wbd = wcol + Gr;
-    float* scratch = wbd + G * Gr + warp * kTile;
-    stage_segments<GATHER>(X, c, first, G, ps);
-    __syncthreads();
-    // w_col = diag(V_flat @ X^T): V_flat row m is V row m % r of block m / r
-    gemm_keep_diagonal([&](int m) { return slab + ((long long)(m / r) * c.rows + r + m % r) * W; },
-                       Gr, r, X, G, ps, W, scratch, wcol);
-    __syncthreads();
-    for (int e = threadIdx.x; e < G * Gr; e += kThreads) {  // w_bd: w_col masked to own block
-        const int g = e / Gr, col = e - g * Gr;
-        wbd[e] = (col / r == g) ? wcol[col] : 0.0f;
-    }
-    __syncthreads();
-    // out (G, pt) = w_bd (G, G r) @ Ut_flat (G r, pt); Ut_flat row m is Ut row m % r of block m / r
-    FragA a;
-    FragBr b;
-    FragC acc;
-    const int n_tiles = pt / 16;
-    for (int tile = warp; tile < (G / 16) * n_tiles; tile += kWarps) {
-        const int mt = tile / n_tiles, nt = tile - mt * n_tiles;
-        wmma::fill_fragment(acc, 0.0f);
-        for (int k0 = 0; k0 < Gr; k0 += 8) {  // 8 rows of Ut_flat lie in one block (r % 8 == 0)
-            wmma::load_matrix_sync(a, wbd + mt * 16 * Gr + k0, Gr);
-            wmma::load_matrix_sync(
-                b, slab + ((long long)(k0 / r) * c.rows + k0 % r) * W + nt * 16, W);
-            to_tf32(a);
-            to_tf32(b);
-            wmma::mma_sync(acc, a, b, acc);
-        }
-        wmma::store_matrix_sync(X + mt * 16 * pt + nt * 16, acc, pt, wmma::mem_row_major);
-    }
-    __syncthreads();
-    for (int e = threadIdx.x; e < G * pt; e += kThreads) {
-        const int g = e / pt;
-        accum<ACCUM>(c, c.t_off[first + g], e - g * pt, X[e], dep);
-    }
-}
-
-// term 'xgemm', kind 'dense': group grp of G blocks, one CTA.  Shared
-// memory: X (G, ps), the results (G, pt), one 16 x 16 tile per warp.
-template <int GATHER, int ACCUM>
-__device__ void xgemm_dense(const Case& c, long long grp, float* smem, float& dep) {
-    const int G = c.G, pt = c.pt, ps = c.ps, W = c.W;
-    const int warp = threadIdx.x >> 5;
-    const long long first = grp * G;
-    const float* slab = c.slabs + first * c.rows * (long long)W;  // D_flat (G pt, W)
-    float* X = smem;
-    float* out = X + G * ps;
-    float* scratch = out + G * pt + warp * kTile;
-    stage_segments<GATHER>(X, c, first, G, ps);
-    __syncthreads();
-    // out (G pt,) = diag(D_flat @ X^T): row m = g pt + i is row i of block g
-    gemm_keep_diagonal([&](int m) { return slab + (long long)m * W; }, G * pt, pt, X, G, ps, W,
-                       scratch, out);
-    __syncthreads();
-    for (int e = threadIdx.x; e < G * pt; e += kThreads) {
-        const int g = e / pt;
-        accum<ACCUM>(c, c.t_off[first + g], e - g * pt, out[e], dep);
-    }
-}
-
 // term 'skip': group grp of G blocks, one CTA: out[g, j] = x_seg_g[j] +
 // 1e-30 * sum(the group's slab), j < pt.
 template <int GATHER, int ACCUM>
@@ -362,7 +315,7 @@ __device__ void skip_group(const Case& c, long long grp, float* smem, float& dep
     }
     const float tiny = block_sum(s) * 1e-30f;
     if constexpr (GATHER == kGatherRoll) {
-        stage_segments<kGatherRoll>(smem, c, first, G, c.ps);
+        stage_segments<kGatherRoll>(smem, c, first, G, c.ps, c.ps);
         __syncthreads();
     }
     for (int e = threadIdx.x; e < G * pt; e += kThreads) {
@@ -374,15 +327,471 @@ __device__ void skip_group(const Case& c, long long grp, float* smem, float& dep
     }
 }
 
+// ---- term 'xgemm': a persistent kernel on a bulk-copy ring ----------------
+
+constexpr int kXWarps = kWarps;               // consumer warps (8)
+constexpr int kXThreads = kThreads + 32;      // + the producer warp
+constexpr int kXMaxStages = 4;                // more are no faster (xgemm_variants)
+constexpr int kXMaxG = 32;                    // 'lr': out's two m16 tiles of blocks
+constexpr int kXOutTiles = 4;                 // 'lr': out's n8 tiles a warp: pt <= 256
+constexpr int kXStrip = 32;                   // floats of a box row: 128 bytes, one swizzle span
+constexpr int kXMaxRows = 256;                // rows of a TMA box
+constexpr int kXHeadBytes = 128 + 1024;       // the barriers, and the ring's 1024-byte alignment
+
+// The layout of one launch: the row stride (floats) of X, the staged x
+// segments; the 32-column strips of a slab that a stage holds; a stage's
+// floats; the stage count.
+struct XPlan {
+    int sx, strips, stage_floats, stages;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                 :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    const uint32_t addr = smem_addr(bar);
+    uint32_t done = 0;
+    do {
+        asm volatile("{\n .reg .pred p;\n"
+                     " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                     " selp.u32 %0, 1, 0, p;\n}\n"
+                     : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+                 :: "r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// The box of `map` at (column x, row y) into dst, 128-byte swizzled.
+__device__ __forceinline__ void tma_load_2d(float* dst, const CUtensorMap* map, int x, int y,
+                                            uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%2, %3}], [%4];\n"
+        :: "r"(smem_addr(dst)), "l"(map), "r"(x), "r"(y), "r"(smem_addr(bar))
+        : "memory");
+}
+
+// A barrier of the consumer warps alone (the producer never waits on it).
+__device__ __forceinline__ void consumer_sync() {
+    asm volatile("bar.sync 1, %0;\n" :: "n"(kThreads) : "memory");
+}
+
+// Sum of v over the consumer warps; every consumer thread gets it.
+__device__ float consumer_sum(float v, float* red) {
+    v = warp_sum(v);
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+    consumer_sync();
+    float total = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kXWarps; ++w) total += red[w];
+    consumer_sync();
+    return total;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A stage's layout: the slab lands as strips of 32 columns, each `rows`
+// rows of 128 bytes, and the TMA's 128-byte swizzle puts 16-byte chunk q of
+// a row at chunk q ^ (row % 8): slab element (row, col) is at float
+//     ((col / 32) rows + row) 32 + (((col / 4) % 8 ^ row % 8) 4) + col % 4.
+// The consumers set their fragments' addresses from it once per block.
+
+// The producer warp: every block of the CTA's groups into the ring, one
+// TMA box (32 columns x the slab's rows) per strip.
+__device__ void xgemm_produce(const Case& c, const XPlan& p, const CUtensorMap* map,
+                              float* ring, uint64_t* full, uint64_t* empty,
+                              long long n_groups, int lane) {
+    const uint32_t bytes = (uint32_t)p.strips * kXStrip * c.rows * 4;
+    int stage = 0;
+    uint32_t parity = 0;
+    for (long long grp = blockIdx.x; grp < n_groups; grp += gridDim.x) {
+        for (int g = 0; g < c.G; ++g) {
+            mbar_wait(empty + stage, parity ^ 1);
+            if (lane == 0) {
+                float* S = ring + (long long)stage * p.stage_floats;
+                const int row0 = (int)((grp * c.G + g) * c.rows);
+                mbar_arrive_expect_tx(full + stage, bytes);
+                for (int s = 0; s < p.strips; ++s)
+                    tma_load_2d(S + s * kXStrip * c.rows, map, s * kXStrip, row0, full + stage);
+            }
+            __syncwarp();
+            if (++stage == p.stages) { stage = 0; parity ^= 1; }
+        }
+    }
+}
+
+// Column g (< G) of the accumulator tiles acc[j] (n8 tile nc + j): lanes
+// with t == (g % 8) / 2 hold it, rows g4 (v0) and g4 + 8 (v1) of the m16
+// tile.  Returns whether this lane holds it.
+__device__ __forceinline__ bool kept_column(const float (&acc)[4][4], int g, int nc, int tq,
+                                            float& v0, float& v1) {
+    const int j = (g >> 3) - nc;
+    if (j < 0 || j >= 4 || tq != (g & 7) >> 1) return false;
+    const bool odd = g & 1;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+        if (jj == j) {
+            v0 = odd ? acc[jj][1] : acc[jj][0];
+            v1 = odd ? acc[jj][3] : acc[jj][2];
+        }
+    }
+    return true;
+}
+
+// The first GEMM of 'lr' for block g: P (r x G) = V (slab rows r .. 2r - 1
+// of stage S, ps columns) X^T over this warp's k8 steps k0 = 8 warp + 64 i,
+// every tile computed; the kept column g, this warp's partial of w = V
+// x_seg_g, into wp (r floats).  X holds TF32 values already.  The
+// fragments' addresses are set once: step i lies in strip warp / 4 + 2 i
+// of the slab, its columns k0 + t in 16-byte chunk 2 warp % 8 and k0 + t +
+// 4 in the next, each at chunk ^ g4 (V's rows m0, m0 + 8 are g4 mod 8).
+__device__ void lr_partial(const float* S, int rows, const float* X, int sx, int r, int G,
+                           int ps, int g, int warp, int lane, float* wp) {
+    const int g4 = lane >> 2, tq = lane & 3, NT = G / 8;
+    const int c0 = (2 * warp) & 7, step = 2 * rows * kXStrip;
+    for (int mt = 0; mt < r / 16; ++mt) {
+        const float* A = S + ((warp >> 2) * rows + r + mt * 16 + g4) * kXStrip + tq;
+        const int o0 = (c0 ^ g4) << 2, o1 = ((c0 + 1) ^ g4) << 2;
+        for (int nc = 0; nc < NT; nc += 4) {
+            float acc[4][4] = {};
+            const float* a = A;
+            const float* B = X + (nc * 8 + g4) * sx + 8 * warp + tq;
+#pragma unroll 4
+            for (int k0 = 8 * warp; k0 < ps; k0 += 8 * kXWarps, a += step, B += 8 * kXWarps) {
+                const uint32_t f[4] = {tf32(a[o0]), tf32(a[o0 + 8 * kXStrip]), tf32(a[o1]),
+                                       tf32(a[o1 + 8 * kXStrip])};
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    if (nc + j >= NT) break;
+                    mma_tf32(acc[j], f, __float_as_uint(B[j * 8 * sx]),
+                             __float_as_uint(B[j * 8 * sx + 4]));
+                }
+            }
+            float v0, v1;
+            if (kept_column(acc, g, nc, tq, v0, v1)) {
+                wp[mt * 16 + g4] = v0;
+                wp[mt * 16 + g4 + 8] = v1;
+            }
+        }
+    }
+}
+
+// The second GEMM's k-chunk of 'lr' for block g: out (G x pt) += w_bd_g (G
+// x r) Ut (slab rows 0 .. r - 1 of stage S), A formed in registers (row g:
+// w, the sum of the warps' partials in wpart (kXWarps x r); every other row
+// 0), out the warp's n8 tiles warp + 8 j over all G rows.  A k8 step takes
+// its logical columns t and t + 4 from w's (and Ut's rows) k0 + 2t and k0 +
+// 2t + 1, so that a lane reads w as one float2 and Ut's swizzled rows on 32
+// distinct banks.  The fragments' addresses are set once: tile j's columns
+// 8 (warp + 8 j) + g4 lie in strip warp / 4 + 2 j, chunk (2 warp + g4 / 4)
+// % 8, at chunk ^ (row % 8) in rows 2t and 2t + 1 (mod 8).
+__device__ void lr_update(const float* S, int rows, const float* wpart, int r, int G, int pt,
+                          int g, int warp, int lane, float (&out)[2][kXOutTiles][4]) {
+    const int g4 = lane >> 2, tq = lane & 3, MT = G / 16, NT = pt / 8;
+    const int cn = (2 * warp + (g4 >> 2)) & 7, jstep = 2 * rows * kXStrip;
+    const float* U0 = S + ((warp >> 2) * rows + 2 * tq) * kXStrip + ((cn ^ (2 * tq)) << 2)
+                      + (g4 & 3);
+    const float* U1 = S + ((warp >> 2) * rows + 2 * tq + 1) * kXStrip
+                      + ((cn ^ (2 * tq + 1)) << 2) + (g4 & 3);
+    const float* W = wpart + 2 * tq;
+    for (int k0 = 0; k0 < r; k0 += 8, U0 += 8 * kXStrip, U1 += 8 * kXStrip, W += 8) {
+        float w0 = 0.0f, w1 = 0.0f;
+#pragma unroll
+        for (int q = 0; q < kXWarps; ++q) {
+            const float2 v = *reinterpret_cast<const float2*>(W + q * r);
+            w0 += v.x;
+            w1 += v.y;
+        }
+        const uint32_t t0 = tf32(w0), t1 = tf32(w1);
+        uint32_t a[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+            const int row = mt * 16 + g4;
+            a[mt][0] = row == g ? t0 : 0u;
+            a[mt][1] = row + 8 == g ? t0 : 0u;
+            a[mt][2] = row == g ? t1 : 0u;
+            a[mt][3] = row + 8 == g ? t1 : 0u;
+        }
+#pragma unroll
+        for (int j = 0; j < kXOutTiles; ++j) {
+            if (warp + kXWarps * j >= NT) break;
+            const uint32_t b0 = tf32(U0[j * jstep]), b1 = tf32(U1[j * jstep]);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+                if (mt < MT) mma_tf32(out[mt][j], a[mt], b0, b1);
+        }
+    }
+}
+
+// 'dense', block g at y offset t: D (slab rows 0 .. pt - 1 of stage S, ps
+// columns) X^T over all of k, a warp per m16 tile of rows, every tile
+// computed; the kept column g into y.  X holds TF32 values already.  A
+// strip's four k8 steps q take chunks 2q and 2q + 1 of rows that are g4
+// mod 8, at chunk ^ g4.
+template <int ACCUM>
+__device__ void dense_block(const Case& c, const float* S, const float* X, int sx, int g,
+                            int t, int warp, int lane, float& dep) {
+    const int g4 = lane >> 2, tq = lane & 3, NT = c.G / 8, rows = c.rows;
+    int o[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) o[q] = (q ^ g4) << 2;
+    for (int mt = warp; mt < c.pt / 16; mt += kXWarps) {
+        const int m0 = mt * 16 + g4;
+        for (int nc = 0; nc < NT; nc += 4) {
+            float acc[4][4] = {};
+            const float* a = S + m0 * kXStrip + tq;
+            const float* B = X + (nc * 8 + g4) * sx + tq;
+            for (int k0 = 0; k0 < c.ps; k0 += kXStrip, a += rows * kXStrip, B += kXStrip) {
+#pragma unroll
+                for (int q = 0; q < 4; ++q) {
+                    if (k0 + 8 * q >= c.ps) break;
+                    const uint32_t f[4] = {tf32(a[o[2 * q]]), tf32(a[o[2 * q] + 8 * kXStrip]),
+                                           tf32(a[o[2 * q + 1]]),
+                                           tf32(a[o[2 * q + 1] + 8 * kXStrip])};
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) {
+                        if (nc + j >= NT) break;
+                        mma_tf32(acc[j], f, __float_as_uint(B[j * 8 * sx + 8 * q]),
+                                 __float_as_uint(B[j * 8 * sx + 8 * q + 4]));
+                    }
+                }
+            }
+            float v0, v1;
+            if (kept_column(acc, g, nc, tq, v0, v1)) {
+                accum<ACCUM>(c, t, m0, v0, dep);
+                accum<ACCUM>(c, t, m0 + 8, v1, dep);
+            }
+        }
+    }
+}
+
+// Term 'xgemm'.  Shared memory: the barriers; from the next 1024-byte
+// boundary the ring (p.stages stages of p.stage_floats); X (G rows of
+// stride sx); for 'lr' two buffers of the warps' partials of w (kXWarps x r
+// each, by block parity); kXWarps floats for the per-group sums of accum
+// 'skip'.  `map` is the slabs as a 2-D tensor (nb rows x W columns).
+template <int KIND, int GATHER, int ACCUM>
+__global__ void __launch_bounds__(kXThreads, 1)
+xgemm_kernel(Case c, XPlan p, const __grid_constant__ CUtensorMap map) {
+    extern __shared__ __align__(128) float xsmem[];
+    uint64_t* full = reinterpret_cast<uint64_t*>(xsmem);
+    uint64_t* empty = full + kXMaxStages;
+    // the 128-byte swizzle repeats every 1024 bytes of shared address
+    const uint32_t head = 128 + ((1024 - ((smem_addr(xsmem) + 128) & 1023)) & 1023);
+    float* ring = xsmem + head / 4;
+    float* X = ring + (long long)p.stages * p.stage_floats;
+    float* wpart = X + c.G * p.sx;
+    float* red = wpart + (KIND == kLr ? 2 * kXWarps * c.r : 0);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const long long n_groups = c.nb / c.G;
+    if (threadIdx.x == 0) {
+        for (int q = 0; q < p.stages; ++q) {
+            mbar_init(full + q, 1);  // the producer's expect_tx arrival
+            mbar_init(empty + q, kXWarps);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (warp == kXWarps) {
+        xgemm_produce(c, p, &map, ring, full, empty, n_groups, lane);
+        return;
+    }
+    int stage = 0;
+    uint32_t parity = 0;
+    for (long long grp = blockIdx.x; grp < n_groups; grp += gridDim.x) {
+        const long long first = grp * c.G;
+        float dep = 0.0f;
+        consumer_sync();  // every warp is done with the previous group's X
+        stage_segments<GATHER, true>(X, c, first, c.G, c.ps, p.sx);
+        consumer_sync();
+        if constexpr (KIND == kLr) {
+            float out[2][kXOutTiles][4] = {};
+            for (int g = 0; g < c.G; ++g) {
+                mbar_wait(full + stage, parity);
+                const float* S = ring + (long long)stage * p.stage_floats;
+                float* wp = wpart + (g & 1) * kXWarps * c.r;
+                lr_partial(S, c.rows, X, p.sx, c.r, c.G, c.ps, g, warp, lane, wp + warp * c.r);
+                consumer_sync();  // the partials are in
+                lr_update(S, c.rows, wp, c.r, c.G, c.pt, g, warp, lane, out);
+                __syncwarp();
+                if (lane == 0) mbar_arrive(empty + stage);
+                if (++stage == p.stages) { stage = 0; parity ^= 1; }
+            }
+            // out row b is block b's result.  It goes into y through X (free
+            // once the last block's partials are in), so that each atomic
+            // instruction adds 32 consecutive floats of one row, as 'base'
+            // does; one f32 atomic per output row
+            const int g4 = lane >> 2, tq = lane & 3;
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+                if (mt * 16 >= c.G) break;
+#pragma unroll
+                for (int j = 0; j < kXOutTiles; ++j) {
+                    const int nt = warp + kXWarps * j;
+                    if (nt >= c.pt / 8) break;
+                    float* o = X + (mt * 16 + g4) * p.sx + nt * 8 + 2 * tq;
+                    *reinterpret_cast<float2*>(o) = make_float2(out[mt][j][0], out[mt][j][1]);
+                    *reinterpret_cast<float2*>(o + 8 * p.sx) =
+                        make_float2(out[mt][j][2], out[mt][j][3]);
+                }
+            }
+            consumer_sync();
+            for (int b = warp; b < c.G; b += kXWarps) {
+                const int t = __ldg(c.t_off + first + b);
+                for (int col = lane; col < c.pt; col += 32)
+                    accum<ACCUM>(c, t, col, X[b * p.sx + col], dep);
+            }
+        } else {
+            for (int g = 0; g < c.G; ++g) {
+                mbar_wait(full + stage, parity);
+                const float* S = ring + (long long)stage * p.stage_floats;
+                dense_block<ACCUM>(c, S, X, p.sx, g, __ldg(c.t_off + first + g), warp, lane,
+                                   dep);
+                __syncwarp();
+                if (lane == 0) mbar_arrive(empty + stage);
+                if (++stage == p.stages) { stage = 0; parity ^= 1; }
+            }
+        }
+        if constexpr (ACCUM == kAccSkip) {
+            const float total = consumer_sum(dep, red);
+            if (threadIdx.x == 0) c.sink[grp] = total;
+        }
+    }
+}
+
+// cuTensorMapEncodeTiled of the driver, found through the runtime (nothing
+// links against the driver library).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The slabs as a 2-D tensor of nb rows x W floats, boxes of 32 columns x
+// the slab's rows, 128-byte swizzled; the last one is kept, since a
+// profiling chain launches on the same slabs again and again.
+cudaError_t slab_map(const Case& c, CUtensorMap* out) {
+    static EncodeTiled encode = nullptr;
+    static CUtensorMap kept;
+    static const void* kept_ptr = nullptr;
+    static long long kept_rows = -1;
+    static int kept_W = -1, kept_box = -1;
+    const long long n_rows = (long long)c.nb * c.rows;
+    if (c.slabs == kept_ptr && n_rows == kept_rows && c.W == kept_W && c.rows == kept_box) {
+        *out = kept;
+        return cudaSuccess;
+    }
+    if (encode == nullptr) {
+        void* fn = nullptr;
+        cudaDriverEntryPointQueryResult found;
+        const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                                      cudaEnableDefault, &found);
+        if (e != cudaSuccess) return e;
+        if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
+        encode = reinterpret_cast<EncodeTiled>(fn);
+    }
+    const cuuint64_t dims[2] = {(cuuint64_t)c.W, (cuuint64_t)n_rows};
+    const cuuint64_t strides[1] = {(cuuint64_t)c.W * 4};
+    const cuuint32_t box[2] = {kXStrip, (cuuint32_t)c.rows};
+    const cuuint32_t steps[2] = {1, 1};
+    if (encode(&kept, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(c.slabs), dims,
+               strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE)
+        != CUDA_SUCCESS) {
+        kept_ptr = nullptr;
+        return cudaErrorInvalidValue;
+    }
+    kept_ptr = c.slabs;
+    kept_rows = n_rows;
+    kept_W = c.W;
+    kept_box = c.rows;
+    *out = kept;
+    return cudaSuccess;
+}
+
+// The layout and grid of a launch of 'xgemm': the stages that fit the
+// card's opt-in shared memory (at most kXMaxStages), one CTA per SM or as
+// many as fit, no more than the groups.  Shapes outside the kernel's
+// registers (G > kXMaxG; 'lr' with pt > 256), slabs of more rows than a
+// TMA box takes (256), and shapes with fewer than two stages are refused
+// (cudaErrorInvalidConfiguration).  The grid is worked out once per
+// (instantiation, device, shared memory) and kept.
+template <int KIND, int GATHER, int ACCUM>
+cudaError_t launch_xgemm(const Case& c, cudaStream_t st) {
+    if (c.G > kXMaxG || (KIND == kLr && c.pt > 8 * kXWarps * kXOutTiles)
+        || c.rows > kXMaxRows)
+        return cudaErrorInvalidConfiguration;
+    auto kernel = xgemm_kernel<KIND, GATHER, ACCUM>;
+    int device = 0, optin = 0;
+    cudaError_t e = cudaGetDevice(&device);
+    if (e != cudaSuccess) return e;
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (e != cudaSuccess) return e;
+    XPlan p;
+    // 4 mod 8 (ps, pt multiples of 8): X's fragments on distinct banks; X
+    // holds 'lr''s out (G x pt) at the group's end
+    p.sx = (c.ps > c.pt ? c.ps : c.pt) + 4;
+    const int cols = KIND == kLr ? c.W : c.ps;  // the slab columns used
+    p.strips = (cols + kXStrip - 1) / kXStrip;
+    p.stage_floats = p.strips * kXStrip * c.rows;  // rows a multiple of 8: 1024-byte stages
+    const size_t fixed = kXHeadBytes
+        + ((size_t)c.G * p.sx + (KIND == kLr ? 2 * kXWarps * c.r : 0) + kXWarps) * 4;
+    const size_t per_stage = (size_t)p.stage_floats * 4;
+    if ((size_t)optin < fixed + 2 * per_stage) return cudaErrorInvalidConfiguration;
+    p.stages = (int)((optin - fixed) / per_stage);
+    if (p.stages > kXMaxStages) p.stages = kXMaxStages;
+    const size_t smem = fixed + p.stages * per_stage;
+    static int cached_device = -1, cached_grid = 0;
+    static size_t cached_smem = 0;
+    if (device != cached_device || smem != cached_smem) {
+        e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return e;
+        int sms = 0, per_sm = 0;
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+        if (e != cudaSuccess) return e;
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kXThreads, smem);
+        if (e != cudaSuccess) return e;
+        if (per_sm < 1) return cudaErrorInvalidConfiguration;
+        cached_device = device;
+        cached_smem = smem;
+        cached_grid = sms * per_sm;
+    }
+    CUtensorMap map;
+    e = slab_map(c, &map);
+    if (e != cudaSuccess) return e;
+    const long long n_groups = c.nb / c.G;
+    const unsigned grid = (unsigned)(n_groups < cached_grid ? n_groups : cached_grid);
+    kernel<<<grid, kXThreads, smem, st>>>(c, p, map);
+    return cudaGetLastError();
+}
+
 template <int KIND, int GATHER, int TERM, int ACCUM>
 __global__ void __launch_bounds__(kThreads) bucket_variant_kernel(Case c) {
     extern __shared__ __align__(128) float smem[];
     float dep = 0.0f;
+    static_assert(TERM != kXgemm, "term 'xgemm' runs xgemm_kernel");
     if constexpr (TERM == kVpu) {
         vpu_block<KIND, GATHER, ACCUM>(c, blockIdx.x, smem, dep);
-    } else if constexpr (TERM == kXgemm) {
-        if constexpr (KIND == kLr) xgemm_lr<GATHER, ACCUM>(c, blockIdx.x, smem, dep);
-        else xgemm_dense<GATHER, ACCUM>(c, blockIdx.x, smem, dep);
     } else {
         skip_group<GATHER, ACCUM>(c, blockIdx.x, smem, dep);
     }
@@ -397,11 +806,6 @@ size_t smem_bytes(const Case& c) {
     size_t floats = 0;
     if constexpr (TERM == kVpu) {
         floats = (GATHER == kGatherRoll ? c.ps : 0) + (KIND == kLr ? c.r : 0);
-    } else if constexpr (TERM == kXgemm) {
-        const int wide = c.ps > c.pt ? c.ps : c.pt;
-        floats = KIND == kLr
-            ? (size_t)c.G * wide + (size_t)c.G * c.r + (size_t)c.G * c.G * c.r + kWarps * kTile
-            : (size_t)c.G * c.ps + (size_t)c.G * c.pt + kWarps * kTile;
     } else {
         floats = GATHER == kGatherRoll ? (size_t)c.G * c.ps : 0;
     }
@@ -410,16 +814,20 @@ size_t smem_bytes(const Case& c) {
 
 template <int KIND, int GATHER, int TERM, int ACCUM>
 cudaError_t launch_variant(const Case& c, cudaStream_t st) {
-    const unsigned grid = TERM == kVpu ? (unsigned)c.nb : (unsigned)(c.nb / c.G);
-    const size_t smem = smem_bytes<KIND, GATHER, TERM>(c);
-    auto kernel = bucket_variant_kernel<KIND, GATHER, TERM, ACCUM>;
-    if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return e;
+    if constexpr (TERM == kXgemm) {
+        return launch_xgemm<KIND, GATHER, ACCUM>(c, st);
+    } else {
+        const unsigned grid = TERM == kVpu ? (unsigned)c.nb : (unsigned)(c.nb / c.G);
+        const size_t smem = smem_bytes<KIND, GATHER, TERM>(c);
+        auto kernel = bucket_variant_kernel<KIND, GATHER, TERM, ACCUM>;
+        if (smem > 48 * 1024) {
+            const cudaError_t e = cudaFuncSetAttribute(
+                kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+            if (e != cudaSuccess) return e;
+        }
+        kernel<<<grid, kThreads, smem, st>>>(c);
+        return cudaGetLastError();
     }
-    kernel<<<grid, kThreads, smem, st>>>(c);
-    return cudaGetLastError();
 }
 
 template <int KIND, int GATHER, int TERM>
@@ -466,7 +874,10 @@ __global__ void take_kernel(const float* __restrict__ x, int n, const int* __res
 // 'skip'.  slabs (nb, rows, W) f32, 32-byte aligned, W a multiple of 8;
 // x and y (L,) with L a multiple of 4, y zeroed; sink (nb,) floats for
 // accum 'skip'.  'xgemm' and 'skip' need nb a multiple of G; 'xgemm'
-// needs G, pt (and r for 'lr') multiples of 16 and ps of 8.
+// needs G, pt (and r for 'lr') multiples of 16 and ps of 8, and refuses
+// (cudaErrorInvalidConfiguration) G > 32, 'lr' with pt > 256, slabs of
+// more than 256 rows (one TMA box) and shapes whose two stages do not fit
+// the shared memory (`launch_xgemm`).
 extern "C" int bv_launch(int kind, int gather, int term, int accum, const float* slabs,
                          const int* t_off, const int* s_off, const float* x, float* y,
                          float* sink, int L, int nb, int G, int r, int pt, int ps, int rows,

@@ -15,13 +15,16 @@ follow the reference's `_gather_*`, `_term_vpu_*`, `_term_xgemm_*` and
 `_accum_*` one to one, batched over the bucket's groups of G blocks.  The
 wrapper runs them on CPU tensors only; on CUDA tensors it launches the
 kernel or raises.  LAUNCH_COUNTS counts the wrapper's launches.
+`xgemm_streamed_plain` is a second plain version of term 'xgemm' that sums
+in the order of the kernel's consumers, block by block.
 
 A block segment that runs outside [0, L) reads zeros from x and drops its
 rows of y, in the kernel and the plain version alike (the reference's
 cases keep every segment inside: offsets below L - width - 256).
 
-With accum 'skip' nothing reaches y; the per-CTA sums that keep the
-kernel's loads alive come back with `return_sink=True` (the plain version
+With accum 'skip' nothing reaches y; the sums that keep the kernel's loads
+alive, one per block for term 'vpu' and one per group of G blocks
+otherwise (`n_ctas`), come back with `return_sink=True` (the plain version
 gives the same sums), so that even the 'stream' variant can be checked.
 
 Tolerances against the reference (the plain version, f32 on the CPU):
@@ -65,6 +68,12 @@ TF32_UNIT = 2.0 ** -11  # unit round-off of TF32 (10 stored mantissa bits)
 # standard deviations of the TF32 error that 'xgemm' may reach: the largest
 # of 40 960 Gaussian errors lies near 4.4 of them
 XGEMM_SIGMAS = 8.0
+# the 'xgemm' kernel's consumer warps, and the shapes it takes
+# (csrc/bucket_variants.cu `launch_xgemm`)
+XGEMM_WARPS = 8
+XGEMM_MAX_G = 32
+XGEMM_MAX_PT_LR = 256
+XGEMM_MAX_ROWS = 256  # a slab's rows: one TMA box
 
 
 def reset_launch_counts() -> None:
@@ -233,8 +242,9 @@ def _accum_static(y, out):
 
 
 def n_ctas(term, nb, G):
-    """The kernel's CTAs, one slot each in the sink: one a block for term
-    'vpu', one a group of G blocks otherwise."""
+    """The slots of the sink: one a block for term 'vpu' (one CTA each),
+    one a group of G blocks otherwise (one CTA each for 'skip'; 'xgemm''s
+    persistent CTAs write one slot for each group they take)."""
     return nb if term == "vpu" else nb // G
 
 
@@ -250,7 +260,7 @@ def bucket_variant_plain(kind, gather, term, accum, slabs, offs, x, L, G, r,
     """P3's plain version: y (1, L) of one bucket under (gather, term,
     accum); see the module docstring and the .cu source for each choice.
     With `return_sink` (accum 'skip' only), (y, sink): sink[c] the sum of
-    the results of the kernel's CTA c (`n_ctas`)."""
+    the results of slot c (`n_ctas`)."""
     _check_variant(kind, gather, term, accum, slabs, offs, x, L, G, r, pt,
                    ps, return_sink)
     t_off, s_off = offs
@@ -273,6 +283,86 @@ def bucket_variant_plain(kind, gather, term, accum, slabs, offs, x, L, G, r,
         _accum_static(y, out.reshape(nb, pt))
     if return_sink:
         return y[None], out.reshape(n_ctas(term, nb, G), -1).sum(1)
+    return y[None]
+
+
+def round_tf32(t):
+    """t (float32) rounded to TF32 as the kernel's cvt.rna.tf32.f32 rounds
+    it: 10 stored mantissa bits, ties away from zero."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _check_xgemm_shape(G, r, pt, ps, kind):
+    if (G % 16 or pt % 16 or ps % 8 or (kind == "lr" and r % 16)
+            or G > XGEMM_MAX_G or (kind == "lr" and pt > XGEMM_MAX_PT_LR)
+            or slab_rows(kind, r, pt) > XGEMM_MAX_ROWS):
+        raise ValueError(
+            f"term 'xgemm' (m16n8k8 TF32 tiles, out in registers, a slab in "
+            f"one TMA box) needs G, pt{' and r' if kind == 'lr' else ''} "
+            f"multiples of 16, ps of 8, G <= {XGEMM_MAX_G}"
+            + (f", pt <= {XGEMM_MAX_PT_LR}" if kind == "lr" else "")
+            + f" and at most {XGEMM_MAX_ROWS} slab rows; got G = {G}, r = "
+            f"{r}, pt = {pt}, ps = {ps}")
+
+
+def _k8_sum(terms):
+    """The k8 steps of terms (..., steps) summed one after another, as one
+    warp's accumulator takes its mma steps."""
+    acc = terms[..., 0]
+    for s in range(1, terms.shape[-1]):
+        acc = acc + terms[..., s]
+    return acc
+
+
+def xgemm_streamed_plain(kind, gather, accum, slabs, offs, x, L, G, r, pt,
+                         ps, return_sink=False, tf32=False):
+    """The 'xgemm' term summed block by block in the order of the kernel's
+    consumers (csrc/bucket_variants.cu `xgemm_kernel`), batched over the
+    groups; y (1, L), and with `return_sink` (accum 'skip') the per-group
+    sums too.  It computes only each block's kept column and row of out:
+    the other tiles the kernel computes hold 0 there.
+
+    'lr', block g of a group: warp q of 8 sums V_g x_g over its k8 steps
+    q, q + 8, ... (each step's 8 products summed first); w is the warps'
+    partials added in warp order; block g's row of out is w^T Ut_g over
+    the k8 steps of r in order (the other blocks add exact zeros into it).
+    'dense': D_g x_g over the k8 steps of ps in order, in one warp.  With
+    `tf32`, V, x, w and Ut (D and x) are rounded to TF32 as the kernel
+    rounds them (`round_tf32`); the sums stay f32."""
+    _check_variant(kind, gather, "xgemm", accum, slabs, offs, x, L, G, r, pt,
+                   ps, return_sink)
+    _check_xgemm_shape(G, r, pt, ps, kind)
+    rnd = round_tf32 if tf32 else (lambda t: t)
+    t_off, s_off = offs
+    nb, rows, W = slabs.shape
+    S = nb // G
+    xg = rnd(_gathered(gather, x, s_off, ps, L)).reshape(S, G, ps // 8, 8)
+    slab = slabs.reshape(S, G, rows, W)
+    out = torch.zeros((S, G, pt), dtype=torch.float32, device=x.device)
+    for g in range(G):
+        xs = xg[:, g]  # (S, steps, 8)
+        if kind == "lr":
+            V = rnd(slab[:, g, r:, :ps]).reshape(S, r, ps // 8, 8)
+            steps = (V * xs[:, None]).sum(-1)  # (S, r, steps)
+            partials = [_k8_sum(steps[..., q::XGEMM_WARPS])
+                        for q in range(min(XGEMM_WARPS, ps // 8))]
+            w = partials[0]
+            for p in partials[1:]:
+                w = w + p
+            w = rnd(w).reshape(S, r // 8, 8, 1)
+            Ut = rnd(slab[:, g, :r, :pt]).reshape(S, r // 8, 8, pt)
+            out[:, g] = _k8_sum((w * Ut).sum(2).transpose(1, 2))
+        else:
+            D = rnd(slab[:, g, :pt, :ps]).reshape(S, pt, ps // 8, 8)
+            out[:, g] = _k8_sum((D * xs[:, None]).sum(-1))
+    y = torch.zeros(L, dtype=torch.float32, device=x.device)
+    if accum == "roll":
+        _accum_seg(y, t_off, out.reshape(nb, pt), L)
+    elif accum == "static":
+        _accum_static(y, out.reshape(nb, pt))
+    if return_sink:
+        return y[None], out.reshape(S, -1).sum(1)
     return y[None]
 
 
@@ -366,11 +456,8 @@ def bucket_variant(kind, gather, term, accum, slabs, offs, x, L, G, r, pt,
             or x.data_ptr() % 16):
         raise ValueError("the kernel needs L a multiple of 4, max(pt, ps) of "
                          "8, ps of 4, slabs 32-byte and x 16-byte aligned")
-    if term == "xgemm" and (G % 16 or pt % 16 or ps % 8
-                            or (kind == "lr" and r % 16)):
-        raise ValueError("term 'xgemm' (16 x 16 x 8 TF32 tiles) needs G, pt"
-                         + (" and r" if kind == "lr" else "")
-                         + " multiples of 16 and ps of 8")
+    if term == "xgemm":
+        _check_xgemm_shape(G, r, pt, ps, kind)
     lib = _library()
     nb = slabs.shape[0]
     y = torch.zeros((1, L), dtype=torch.float32, device=x.device)

@@ -748,7 +748,8 @@ def test_bucket_variants_match_plain_version(cuda_device):
     the reference's --cpu size (4 MiB, L = 40960), with two segments moved
     past the ends of x and y; with accum 'skip', y = 0 and the per-CTA sums
     of positive data to 1e-5 relative; K1 on the same bucket equals
-    'base'."""
+    'base'.  Then 'xgemm' on 2 SMs + 37 groups (its persistent grid's
+    tail), within `kernel_tolerance`, and its per-group sums."""
     from htool_python_torch.profiling import bucket_variants as bv
 
     rng = np.random.default_rng(0)
@@ -794,6 +795,42 @@ def test_bucket_variants_match_plain_version(cuda_device):
                                    x, L, G, r, pt, ps)
         err = (y_k1 - y_base).abs().max() / y_base.abs().max()
         assert err <= 1e-5, (kind, float(err))
+    # 'xgemm' runs a persistent grid of one CTA per SM: 2 SMs + 37 groups
+    # are no multiple of it, so CTAs take 2 or 3 groups and the ring's
+    # phases run on across groups; segments past both ends of x and y;
+    # accum 'skip' writes one sum per group
+    g = torch.Generator(cuda_device).manual_seed(1)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    n_groups = 2 * sms + 37
+    for kind, r, pt, ps, G in bv.CASES:
+        nb = n_groups * G
+        slabs = torch.randn((nb, bv.slab_rows(kind, r, pt), max(pt, ps)),
+                            device=cuda_device, generator=g)
+        t_off, s_off = (torch.randint(0, L - w - 256, (nb,), generator=g,
+                                      device=cuda_device, dtype=torch.int32)
+                        for w in (pt, ps))
+        s_off[0], t_off[1], s_off[-1], t_off[-2] = L - 100, -50, -30, L - 60
+        x = torch.randn((1, L), device=cuda_device, generator=g)
+        for gather, accum in (("roll", "roll"), ("take", "static")):
+            args = (kind, gather, "xgemm", accum, slabs, (t_off, s_off), x, L,
+                    G, r, pt, ps)
+            y = bv.bucket_variant(*args)
+            torch.cuda.synchronize()
+            y_plain = bv.bucket_variant_plain(*args)
+            tol = bv.kernel_tolerance(*args, y_plain)
+            assert ((y - y_plain).abs() <= tol).all(), (kind, gather, accum)
+            assert (y_plain.abs() > tol).any()  # a zero output would fail
+        args = (kind, "roll", "xgemm", "skip", slabs.abs(), (t_off, s_off),
+                x.abs(), L, G, r, pt, ps)
+        y, sink = bv.bucket_variant(*args, return_sink=True)
+        # TF32 moves a group's sum by about 1e-5 of it: the sums are held to
+        # the plain twin that rounds as the kernel does, to f32 round-off
+        y_twin, want = bv.xgemm_streamed_plain(kind, "roll", "skip",
+                                               *args[4:], return_sink=True,
+                                               tf32=True)
+        assert not y.any() and not y_twin.any()
+        assert sink.shape == want.shape == (n_groups,)
+        assert ((sink - want).abs() <= 1e-5 * want.abs().max()).all(), kind
 
 
 @pytest.mark.gpu
