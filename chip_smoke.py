@@ -171,6 +171,34 @@ Phases, in this order, one line each (`phase <name> {json}`):
                 ms, device operations and busy share of each and of one
                 solve (torch.profiler), and the block rows' check of
                 `distributed`.
+  f64_check:    the float64 / complex128 kernels: the headline pipeline
+                assembled in float64 (hm * x, hm @ X with their launches
+                counted; sampled error <= 1e-3), a Helmholtz operator in
+                complex128 (N = --n-k2 on the sphere, eps 1e-6; hm * x,
+                hm @ X on complex x, sampled error <= 2e-6), then
+                hmatrix_product_f64 on the headline (trans N / T) and
+                hmatrix_product_complex128 on N, H-L (Helmholtz kernel) and
+                S-L (exp(10i r) / (0.1 + r)) assemblies (trans N / T / C),
+                k in {1, 8, 9, 64, 129}, each within 1e-12 of the plain
+                version, timed with CUDA events beside `product_bound`
+                (bytes, or flops at the FP64 tensor-core rate);
+  sharded:      the sharded operator (parallel/sharded.py) on a world-1
+                NCCL group: the headline kernel on --n-sharded points, P =
+                4 partitions on this rank, float64 and float32; 'N', 'T'
+                and 3-column products against the single-process
+                DistributedOperator and the block rows' plain version
+                (<= 1e-10 in f64, <= 1e-5 in f32), product ms (k = 1, 8);
+                in f64 the sharded block-Jacobi preconditioner on the four
+                dense subdomain matrices against a loop of solves and one
+                GMRES solve to 1e-8 (iterations, ms each, launches); then
+                `python -m htool_python_torch.parallel.dryrun` (one process
+                per card) in a process of its own, which must exit 0;
+  custom_hooks: the custom low-rank (truncated SVD on the host) and
+                dense-block hooks on the headline kernel at --n-hooks
+                points, f32: build seconds on the card and on the CPU, one
+                dense-blocks call a build, K1's launches, the sampled error
+                (<= 1e-3) and the card's product against the CPU build's
+                (<= 1e-5).
 Every kernel check (k1_check, k1_complex_x, k2_check) runs each case under
 the three launch structures of config.matvec_kernel_mode ('fused',
 'per_bucket', 'seq'); K1-al has the fused structure only.  The `ddm`
@@ -197,7 +225,13 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 TF32_FLOPS = 495e12  # H100 SXM TF32 tensor cores, dense
+F64_FLOPS = 67e12  # H100 SXM FP64 tensor cores (DFMA: 33.5 TFLOP/s)
 KERNEL_TOL = 1e-5  # f32 atomic summation order vs the plain version
+F64_TOL = 1e-12  # f64 atomic summation order vs the plain version
+F64_KS = (1, 8, 9, 64, 129)  # 9 and 64: wide path; 129: a third pass
+SHARDED_P = 4  # partitions of the sharded phase, on one rank
+SHARDED_F64_TOL = 1e-10  # the reference dryrun's bar (__graft_entry__.py)
+SHARDED_GMRES_TOL = 1e-8
 SAMPLED_ERR_MAX = 1e-3  # the headline epsilon
 HELM_EPS = 1e-6
 HELM_ERR_MAX = 2 * HELM_EPS  # complex64 round-off is of the order of eps
@@ -345,7 +379,9 @@ def product_bound(data, L, k):
     k > 8, where K1 and K2 multiply on the tensor cores in 3xTF32 (K2 as
     two real products over the 2k interleaved real columns: the same 8
     flops per complex entry and column), three TF32 products for each f32
-    one at the TF32 rate."""
+    one at the TF32 rate.  float64 / complex128 data: the flops over the
+    FP64 tensor-core peak (F64_FLOPS, 67 TFLOP/s; the DFMA units that the
+    f64 kernels use give half of it), at every k."""
     nbytes = 0
     flops = 0
     itemsize = 4
@@ -358,12 +394,15 @@ def product_bound(data, L, k):
         flops += (8 if mats[0].is_complex() else 2) * k * per_block * uses
     nbytes += 2 * int(L) * k * itemsize
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 3 * flops / TF32_FLOPS if k > 8 else flops / F32_FLOPS
+    if itemsize in (8, 16) and (itemsize == 16 or not mats[0].is_complex()):
+        t_ops = flops / F64_FLOPS  # float64 or complex128
+    else:
+        t_ops = 3 * flops / TF32_FLOPS if k > 8 else flops / F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
-def build_operator(T, torch, points, symmetry, UPLO, device):
+def build_operator(T, torch, points, symmetry, UPLO, device, dtype=None):
     from htool_python_torch.models.kernels import inverse_distance_kernel
 
     builder = T.ClusterTreeBuilder()
@@ -374,7 +413,7 @@ def build_operator(T, torch, points, symmetry, UPLO, device):
     gen = T.KernelGenerator(inverse_distance_kernel(0.1), points, points,
                             device=device)
     hb = T.HMatrixTreeBuilder(1e-3, 10.0, symmetry, UPLO, device=device)
-    hb.set_dtype(torch.float32)
+    hb.set_dtype(dtype or torch.float32)
     t0 = time.perf_counter()
     hm = hb.build(gen, cluster, cluster)
     torch.cuda.synchronize()
@@ -488,15 +527,16 @@ def host_ms(torch, hm, prepared, reps=100):
 
 
 def kernel_cases(torch, operators, phase, dtype, transes, ks=(1, 4, 8),
-                 reps=30, plain_reps=5, other_ks=None):
+                 reps=30, plain_reps=5, other_ks=None, modes=None,
+                 tol=KERNEL_TOL):
     """A kernel against its plain version on the card for every operator
     x trans x k x launch structure (config.matvec_kernel_mode), with x of
     `dtype`; kernel and plain version timed with CUDA events.  `other_ks`:
     the k of the 'per_bucket' and 'seq' structures where they differ from
-    'fused''s `ks`.  One line
-    `phase <phase>` per case; fails above the kernels' tolerance (f32
-    atomics sum in a varying order).  These launches are checks, not the
-    main path."""
+    'fused''s `ks`; `modes`: the launch structures (all by default).  One
+    line `phase <phase>` per case; fails above `tol` (the kernels' atomics
+    sum in a varying order).  These launches are checks, not the main
+    path."""
     from htool_python_torch.config import get_config
     from htool_python_torch.ops.cuda_matvec import MODES, apply_hmatrix_cuda
     from htool_python_torch.ops.matvec import apply_hmatrix_padded
@@ -516,7 +556,7 @@ def kernel_cases(torch, operators, phase, dtype, transes, ks=(1, 4, 8),
                 y_plain = apply_hmatrix_padded(data, x, L, trans, symmetry)
                 plain_ms = cuda_ms(lambda: apply_hmatrix_padded(
                     data, x, L, trans, symmetry), reps=plain_reps, warmup=1)
-                for mode in MODES:
+                for mode in modes or MODES:
                     if mode != "fused" and other_ks and k not in other_ks:
                         continue
                     cfg.matvec_kernel_mode = mode
@@ -539,7 +579,7 @@ def kernel_cases(torch, operators, phase, dtype, transes, ks=(1, 4, 8),
                                 bound_by=bound_by)
                     emit(phase, **case)
                     check(y.dtype == y_plain.dtype and np.isfinite(rel)
-                          and rel <= KERNEL_TOL,
+                          and rel <= tol,
                           f"{phase}: the kernel disagrees with its plain "
                           f"version: {case}")
                     results.append(case)
@@ -566,7 +606,8 @@ def symmetric_phase_kernel(torch):
     return k
 
 
-def build_complex(T, torch, points, kernel, symmetry, UPLO, device):
+def build_complex(T, torch, points, kernel, symmetry, UPLO, device,
+                  dtype=None):
     builder = T.ClusterTreeBuilder()
     builder.set_maximal_leaf_size(128)
     t0 = time.perf_counter()
@@ -575,7 +616,7 @@ def build_complex(T, torch, points, kernel, symmetry, UPLO, device):
     gen = T.KernelGenerator(kernel, points, points, is_complex=True,
                             device=device)
     hb = T.HMatrixTreeBuilder(HELM_EPS, 10.0, symmetry, UPLO, device=device)
-    hb.set_dtype(torch.complex64)
+    hb.set_dtype(dtype or torch.complex64)
     t0 = time.perf_counter()
     hm = hb.build(gen, cluster, cluster)
     torch.cuda.synchronize()
@@ -1722,6 +1763,383 @@ def ddm_hier(T, torch, n, device, counts):
     return cases
 
 
+def f64_check(T, torch, args, device, counts):
+    """float64 / complex128 products: the headline operator assembled in
+    float64 through the user entry points (`hm * x`, `hm @ X`, with the
+    kernels' launches counted around them: the main path of
+    hmatrix_product_f64) and its sampled error; a Helmholtz operator in
+    complex128 (`hm * x`, `hm @ X` on complex x: the main path of
+    hmatrix_product_complex128); then both kernels against their plain
+    version, trans N / T (/ C) x storage x k in F64_KS, within F64_TOL.
+    Returns (f64 cases, c128 cases)."""
+    from htool_python_torch.models.geometry import (
+        create_random_points_in_sphere, create_random_points_on_sphere)
+    from htool_python_torch.models.kernels import hermitian_phase_kernel
+    from htool_python_torch.ops import cuda_matvec
+    from htool_python_torch.ops.matvec import stored_bytes
+
+    rng = np.random.RandomState(args.seed)
+    points = create_random_points_in_sphere(args.n, rng)
+    hm, _, t_asm = build_operator(T, torch, points, "N", "N", device,
+                                  torch.float64)
+    check(hm.dtype == torch.float64, f"the f64 build gave {hm.dtype}")
+    x1 = rng.rand(args.n)
+    X8 = np.asfortranarray(rng.rand(args.n, 8))
+    cuda_matvec.reset_launch_counts()
+    y1 = hm * x1
+    Y8 = hm @ X8
+    torch.cuda.synchronize()
+    counts.update(cuda_matvec.LAUNCH_COUNTS)
+    check(y1.dtype == np.float64 and np.isfinite(y1).all()
+          and np.isfinite(Y8).all(), "f64 product dtype or values")
+    err = sampled_error(points, x1, y1, rng)
+    err8 = max(sampled_error(points, X8[:, c], Y8[:, c],
+                             np.random.RandomState(c)) for c in range(8))
+    check(err <= SAMPLED_ERR_MAX and err8 <= SAMPLED_ERR_MAX,
+          f"f64 sampled error {err}, {err8} above {SAMPLED_ERR_MAX}")
+
+    pts_k2 = create_random_points_on_sphere(
+        args.n_k2, np.random.RandomState(args.seed + 2))
+    c_ops = {}
+    for sym, kern in ((("N", "N"), hermitian_phase_kernel(10.0)),
+                      (("H", "L"), hermitian_phase_kernel(10.0)),
+                      (("S", "L"), symmetric_phase_kernel(torch))):
+        c_ops[sym] = build_complex(T, torch, pts_k2, kern, *sym, device,
+                                   torch.complex128)[0]
+    xc = rng.rand(args.n_k2) + 1j * rng.rand(args.n_k2)
+    cuda_matvec.reset_launch_counts()
+    yc = c_ops[("N", "N")] * xc
+    Yc = c_ops[("N", "N")] @ np.asfortranarray(np.stack([xc] * 8, 1))
+    torch.cuda.synchronize()
+    counts[cuda_matvec.C128_NAME] = cuda_matvec.LAUNCH_COUNTS[
+        cuda_matvec.C128_NAME]
+    check(yc.dtype == np.complex128 and np.isfinite(Yc).all()
+          and np.linalg.norm(Yc[:, 3] - yc) <= F64_TOL * np.linalg.norm(yc),
+          "complex128 product dtype or values")
+    err_c = helmholtz_sampled_error(pts_k2, xc, yc, rng)
+    check(err_c <= HELM_ERR_MAX,
+          f"complex128 sampled error {err_c} above {HELM_ERR_MAX}")
+
+    cases = kernel_cases(torch, {("N", "N"): hm}, "f64_check", torch.float64,
+                         ("N", "T"), ks=F64_KS, reps=20, plain_reps=3,
+                         modes=("fused",), tol=F64_TOL)
+    c_cases = kernel_cases(torch, c_ops, "f64_check", torch.complex128,
+                           ("N", "T", "C"), ks=F64_KS, reps=20, plain_reps=2,
+                           modes=("fused",), tol=F64_TOL)
+    emit("f64_check", N=args.n, dtype="float64", assembly_s=t_asm,
+         stored_bytes=int(stored_bytes(hm._product_data())),
+         sampled_rel_error_k1=err, sampled_rel_error_k8_max=err8,
+         complex128_N=args.n_k2, complex128_stored_bytes=int(stored_bytes(
+             c_ops[("N", "N")]._product_data())),
+         complex128_sampled_rel_error=err_c,
+         launches={k: v for k, v in counts.items() if v})
+    return cases, c_cases
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def plain_transposed_apply(torch, op, x2d, trans):
+    """The sharded operator's transposed product with each block row in
+    its plain version, summed on this process: the yardstick of its 'T'
+    product (which runs the kernels and an all_reduce)."""
+    from htool_python_torch.ops.matvec import apply_hmatrix_padded
+
+    perm_t = torch.as_tensor(op.target_cluster.get_permutation(),
+                             device=x2d.device)
+    inv_s = torch.as_tensor(np.argsort(op.source_cluster.get_permutation()),
+                            device=x2d.device)
+    x_int = x2d[perm_t]
+    y_int = torch.zeros((op.shape[1], x2d.shape[1]), dtype=x2d.dtype,
+                        device=x2d.device)
+    for p, h in enumerate(op.hmatrices):
+        o, s = int(op.t_offsets[p]), int(op.t_sizes[p])
+        base = h.plan.target_offset if h.plan.t_off_absolute else 0
+        x_pad = torch.zeros((h._pad_len, x2d.shape[1]), dtype=x2d.dtype,
+                            device=x2d.device)
+        x_pad[base:base + s] = x_int[o:o + s]
+        y_int += apply_hmatrix_padded(h._product_data(), x_pad, h._pad_len,
+                                      trans, h.symmetry)[:op.shape[1]]
+    return y_int[inv_s]
+
+
+def sharded(T, torch, n, device, counts):
+    """The sharded operator (parallel/sharded.py) on a world-1 NCCL group:
+    the headline kernel on n points (seed 1), P = SHARDED_P partitions on
+    this one rank, in float64 and float32; products against the
+    single-process DistributedOperator ('N', 3 columns) and the block
+    rows' plain version ('T'); in float64 the sharded block-Jacobi
+    preconditioner on the dense subdomain matrices against a sequential
+    loop of solves, and one GMRES solve with it; then the multi-process
+    dryrun (python -m htool_python_torch.parallel.dryrun, one process per
+    card) in a process of its own, after this group is destroyed."""
+    import torch.distributed as dist
+
+    from htool_python_torch.models.geometry import \
+        create_random_points_in_sphere
+    from htool_python_torch.models.kernels import inverse_distance_kernel
+    from htool_python_torch.ops import cuda_matvec
+    from htool_python_torch.parallel import (ShardedDistributedOperator,
+                                             initialize_distributed,
+                                             process_count)
+
+    check(initialize_distributed(f"tcp://127.0.0.1:{free_port()}", 1, 0,
+                                 "nccl") and process_count() == 1,
+          "the world-1 NCCL group did not come up")
+    points = create_random_points_in_sphere(n, np.random.RandomState(1))
+    cb = T.ClusterTreeBuilder()
+    cb.set_maximal_leaf_size(128)
+    cluster = cb.create_cluster_tree(points, 2, size_of_partition=SHARDED_P)
+    gen = T.KernelGenerator(inverse_distance_kernel(0.1), points, points,
+                            device=device)
+    out = {"N": n, "partitions": SHARDED_P, "world_size": process_count(),
+           "device_count": torch.cuda.device_count()}
+    rng = np.random.RandomState(2)
+    try:
+        for dtype, tol in ((torch.float64, SHARDED_F64_TOL),
+                           (torch.float32, KERNEL_TOL)):
+            name = str(dtype).split(".")[1]
+            np_dtype = np.float64 if dtype == torch.float64 else np.float32
+            hb = T.HMatrixTreeBuilder(1e-3, 10.0, "N", "N", device=device)
+            hb.set_dtype(dtype)
+            t0 = time.perf_counter()
+            approx = T.DefaultApproximationBuilder(gen, cluster, cluster, hb)
+            t_build = time.perf_counter() - t0
+            op = ShardedDistributedOperator(approx.hmatrix, cluster, cluster)
+            x = rng.rand(n).astype(np_dtype)
+            X = np.asfortranarray(rng.rand(n, 3).astype(np_dtype))
+            cuda_matvec.reset_launch_counts()
+            y, yt, Y = op * x, op.matvec_global(x, "T"), op @ X
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in cuda_matvec.LAUNCH_COUNTS.items()
+                        if v}
+            counts.update({f"{name}/{k}": v for k, v in launches.items()})
+            y_ref = approx.distributed_operator * x
+            Y_ref = approx.distributed_operator @ X
+            yt_ref = plain_transposed_apply(
+                torch, op, torch.as_tensor(x[:, None], device=device),
+                "T")[:, 0].cpu().numpy()
+            errs = {key: float(np.linalg.norm(a - b) / np.linalg.norm(b))
+                    for key, a, b in (("N", y, y_ref), ("T", yt, yt_ref),
+                                      ("k3", Y, Y_ref))}
+            check(all(np.isfinite(e) and e <= tol for e in errs.values()),
+                  f"sharded {name} products disagree: {errs} above {tol}")
+            apply = op.build_device_apply()
+            res = {"build_s": t_build, "errors": errs, "tolerance": tol,
+                   "launches": launches,
+                   "sampled_rel_error": sampled_error(points, x, y, rng),
+                   "product_ms": {f"k{k}": apply_chain_ms(
+                       torch, apply, n, k, dtype, device, k)
+                       for k in (1, 8)}}
+            if dtype == torch.float64:
+                res.update(sharded_solve(torch, op, approx, cluster, device,
+                                         rng, counts))
+            out[name] = res
+            del approx, op
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m",
+                           "htool_python_torch.parallel.dryrun",
+                           "--timeout", "300"],
+                          cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=360)
+    out["dryrun"] = {"exit": proc.returncode,
+                     "seconds": time.perf_counter() - t0,
+                     "last_line": (proc.stdout.strip().splitlines()
+                                   or [""])[-1][:600]}
+    emit("sharded", **out)
+    check(proc.returncode == 0, f"the dryrun failed (exit "
+          f"{proc.returncode}):\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return out
+
+
+def sharded_solve(torch, op, approx, cluster, device, rng, counts):
+    """The float64 part of `sharded`: block-Jacobi on the dense subdomain
+    matrices (each partition's diagonal block densified on the card,
+    factorized by torch.linalg.lu_factor), against a loop of
+    torch.linalg.solve; one GMRES solve (restart 60, tol
+    SHARDED_GMRES_TOL) with the kernels' launches counted."""
+    from htool_python_torch.ops import cuda_matvec
+    from htool_python_torch.parallel import sharded_block_solve
+    from htool_python_torch.solvers.krylov import gmres_device
+
+    n = op.shape[0]
+    P = op.n_partitions
+    m = int(op.t_sizes.max())
+    perm = cluster.get_permutation()
+    t0 = time.perf_counter()
+    mats = torch.zeros((P, m, m), dtype=torch.float64, device=device)
+    idx = np.full((P, m), n, dtype=np.int64)
+    weights = np.zeros((P, m))
+    ids = []
+    for p in range(P):
+        o, s = int(op.t_offsets[p]), int(op.t_sizes[p])
+        ids.append(torch.as_tensor(perm[o:o + s], device=device))
+        idx[p, :s] = perm[o:o + s]
+        weights[p, :s] = 1.0
+        mats[p, :s, :s] = approx.block_diagonal_hmatrix[p].to_dense_tensor()
+        pad = torch.arange(s, m, device=device)
+        mats[p, pad, pad] = 1.0
+    lu, piv = torch.linalg.lu_factor(mats)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    precond = sharded_block_solve(lu, piv, idx, weights, n)
+    r = torch.as_tensor(rng.rand(n), device=device)
+    z = precond(r)
+    z_ref = torch.zeros_like(r)
+    for p, rows in enumerate(ids):
+        s = len(rows)
+        z_ref[rows] = torch.linalg.solve(mats[p, :s, :s], r[rows])
+    err_p = float(torch.linalg.norm(z - z_ref) / torch.linalg.norm(z_ref))
+    check(err_p <= SHARDED_F64_TOL,
+          f"sharded preconditioner mismatch {err_p} above {SHARDED_F64_TOL}")
+    del mats
+    x_true = torch.as_tensor(rng.rand(n), device=device)
+    apply = op.build_device_apply()
+    b = apply(x_true[:, None])[:, 0]
+    cuda_matvec.reset_launch_counts()
+    t0 = time.perf_counter()
+    x_sol, info = gmres_device(apply, b, M_fn=precond.device_apply,
+                               tol=SHARDED_GMRES_TOL, max_it=500, restart=60)
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+    launches = {k: v for k, v in cuda_matvec.LAUNCH_COUNTS.items() if v}
+    counts.update({f"gmres/{k}": v for k, v in launches.items()})
+    res = float(np.max(info["residual"]))
+    its = int(np.max(info["niter"]))
+    check(res <= SHARDED_GMRES_TOL,
+          f"sharded GMRES residual {res} above {SHARDED_GMRES_TOL} after "
+          f"{its} iterations")
+    return {"precond_setup_s": t_setup, "precond_err": err_p,
+            "gmres_iterations": its, "gmres_residual": res,
+            "gmres_s": t_solve, "gmres_ms_per_iteration": t_solve / its * 1e3,
+            "solution_err": float(torch.linalg.norm(x_sol - x_true)
+                                  / torch.linalg.norm(x_true)),
+            "gmres_launches": launches}
+
+
+class _HookFactors:
+    """The custom-hooks phase's user callbacks: a truncated SVD of each
+    admissible block (the arithmetic of the reference's tests/conftest.py
+    `CustomSVDLowRank`) and one dense-blocks call, both from the kernel's
+    entries computed on the host; the SVDs are kept by block, so that the
+    same build on the CPU repeats every callback but not its SVDs."""
+
+    def __init__(self, points):
+        self.points = points
+        self.svds = {}
+        self.dense_calls = 0
+        self.lr_calls = 0
+
+    def entries(self, rows, cols):
+        d = np.linalg.norm(self.points[:, rows, None]
+                           - self.points[:, None, cols], axis=0)
+        return 1.0 / (0.1 + d)
+
+    def low_rank(self, rows, cols, epsilon):
+        import math
+
+        self.lr_calls += 1
+        key = (rows.tobytes(), cols.tobytes())
+        if key not in self.svds:
+            submat = self.entries(rows, cols)
+            u, s, vh = np.linalg.svd(submat, full_matrices=False)
+            norm = np.linalg.norm(submat)
+            svd_norm = 0.0
+            trunc = len(s) - 1
+            while trunc > 0 and math.sqrt(svd_norm) / norm < epsilon:
+                svd_norm += s[trunc] ** 2
+                trunc -= 1
+            trunc += 1
+            self.svds[key] = (None if trunc * (len(rows) + len(cols))
+                              > len(rows) * len(cols)
+                              else (u[:, :trunc] * s[:trunc], vh[:trunc]))
+        return self.svds[key]
+
+
+def custom_hooks(T, torch, n, seed, device, counts):
+    """The custom low-rank and dense-block hooks: the headline kernel on n
+    points (seed + 3), f32, built on the card with a VirtualLowRankGenerator
+    and a VirtualDenseBlocksGenerator (`_HookFactors`), its product through
+    K1 with the launches counted, the sampled error against the dense
+    oracle, and the same build on the CPU (the plain version's product)."""
+    from htool_python_torch.models.geometry import \
+        create_random_points_in_sphere
+    from htool_python_torch.models.kernels import inverse_distance_kernel
+    from htool_python_torch.ops import cuda_matvec
+
+    points = create_random_points_in_sphere(n, np.random.RandomState(seed + 3))
+    factors = _HookFactors(points)
+
+    class LowRank(T.VirtualLowRankGenerator):
+        def build_low_rank_approximation(self, rows, cols, epsilon):
+            uv = factors.low_rank(rows, cols, epsilon)
+            if uv is None:
+                return False
+            self.set_U(uv[0])
+            self.set_V(uv[1])
+            return True
+
+    class Dense(T.VirtualDenseBlocksGenerator):
+        def build_dense_blocks(self, rows_offsets, cols_offsets, blocks):
+            factors.dense_calls += 1
+            for rows, cols, block in zip(rows_offsets, cols_offsets, blocks):
+                block[:, :] = factors.entries(rows, cols)
+
+    builder = T.ClusterTreeBuilder()
+    builder.set_maximal_leaf_size(128)
+    cluster = builder.create_cluster_tree(points, 2)
+    builds = {}
+    for label, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        hb = T.HMatrixTreeBuilder(SAMPLED_ERR_MAX, 10.0, "N", "N",
+                                  device=dev)
+        hb.set_dtype(torch.float32)
+        hb.set_low_rank_generator(LowRank())
+        hb.set_dense_blocks_generator(Dense())
+        calls = factors.dense_calls
+        t0 = time.perf_counter()
+        hm = hb.build(T.KernelGenerator(inverse_distance_kernel(0.1), points,
+                                        points, device=dev), cluster, cluster)
+        torch.cuda.synchronize()
+        builds[label] = (hm, time.perf_counter() - t0,
+                         factors.dense_calls - calls)
+    hm, t_build, dense_calls = builds["card"]
+    rng = np.random.RandomState(4)
+    x = rng.rand(n).astype(np.float32)
+    cuda_matvec.reset_launch_counts()
+    y = hm * x
+    torch.cuda.synchronize()
+    counts.update(cuda_matvec.LAUNCH_COUNTS)
+    y_cpu = builds["cpu"][0] * x
+    diff = float(np.linalg.norm(y - y_cpu) / np.linalg.norm(y_cpu))
+    err = sampled_error(points, x, y, rng)
+    emit("custom_hooks", N=n, dtype="float32", epsilon=SAMPLED_ERR_MAX,
+         build_s=t_build, cpu_build_s=builds["cpu"][1],
+         low_rank_calls=factors.lr_calls // 2,
+         low_rank_blocks=hm.plan.nb_lowrank_blocks(),
+         dense_blocks_calls_per_build=[dense_calls, builds["cpu"][2]],
+         dense_blocks=hm.plan.nb_dense_blocks(), lr_svd_form=hm._lr_svd_form,
+         sampled_rel_error=err, card_vs_cpu_rel_diff=diff,
+         launches={k: v for k, v in counts.items() if v})
+    check(dense_calls == 1 and builds["cpu"][2] == 1,
+          "the dense-blocks hook was not called once a build")
+    check(not hm._lr_svd_form and hm.plan.nb_lowrank_blocks() > 0,
+          "the custom build kept no low-rank block")
+    check(err <= SAMPLED_ERR_MAX,
+          f"custom-hooks sampled error {err} above {SAMPLED_ERR_MAX}")
+    check(diff <= KERNEL_TOL,
+          f"custom-hooks product differs from the CPU build by {diff}")
+    check(counts.get(cuda_matvec.KERNEL_NAME, 0) > 0,
+          "the custom-hooks product never launched K1")
+
+
 def profiling(torch, device, counts, smi):
     """The profiling path (python -m htool_python_torch.profiling) at the
     reference's sizes, with P1-P4's launches counted around it; returns its
@@ -2068,6 +2486,10 @@ def main(argv=None) -> int:
     ap.add_argument("--n-ddm-hier", type=int, default=16384,
                     help="points of the hierarchical-tier DDM solve "
                     "(default: 16384)")
+    ap.add_argument("--n-sharded", type=int, default=40000,
+                    help="points of the sharded phase (default: 40000)")
+    ap.add_argument("--n-hooks", type=int, default=8000,
+                    help="points of the custom-hooks phase (default: 8000)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--k1-buckets-only", action="store_true",
                     help="build the operators of --bucket-operators and run "
@@ -2091,7 +2513,8 @@ def main(argv=None) -> int:
         create_random_points_in_sphere, create_random_points_on_sphere)
     from htool_python_torch.models.kernels import hermitian_phase_kernel
     from htool_python_torch.ops import cuda_build
-    from htool_python_torch.ops.cuda_matvec import (ALIGNED_NAME, K2_NAME,
+    from htool_python_torch.ops.cuda_matvec import (ALIGNED_NAME, C128_NAME,
+                                                    F64_NAME, K2_NAME,
                                                     KERNEL_NAME, launch_name)
     from htool_python_torch.ops.matvec import stored_bytes
 
@@ -2213,6 +2636,21 @@ def main(argv=None) -> int:
     check(hier_counts.get(KERNEL_NAME, 0) > 0,
           "the ddm_hier solve never launched kernel K1")
 
+    f64_counts = {}
+    f64_cases, c128_cases = f64_check(T, torch, args, device, f64_counts)
+    check(f64_counts.get(F64_NAME, 0) > 0
+          and f64_counts.get(C128_NAME, 0) > 0,
+          "the f64 path never launched hmatrix_product_f64 or "
+          "hmatrix_product_complex128")
+    torch.cuda.empty_cache()
+    sharded_counts = {}
+    sharded_out = sharded(T, torch, args.n_sharded, device, sharded_counts)
+    check(sharded_counts.get(f"float64/{F64_NAME}", 0) > 0
+          and sharded_counts.get(f"float32/{KERNEL_NAME}", 0) > 0,
+          "the sharded products never launched hmatrix_product_f64 or K1")
+    hook_counts = {}
+    custom_hooks(T, torch, args.n_hooks, args.seed, device, hook_counts)
+
     def block_row_err(mode):
         return max(c["max_abs_err"] for c in row_cases if c["mode"] == mode)
 
@@ -2309,6 +2747,33 @@ def main(argv=None) -> int:
          **{key: {"now": SUMMARY.get(key), "before": v}
             for key, v in BEFORE.items()})
     kernels += profiling_entries(prof_counts, prof_checks, prof)
+    f64_src = "htool_python_torch/csrc/hmatrix_product_f64.cu"
+    for kern, case_list, launches in (
+            (F64_NAME, f64_cases, f64_counts[F64_NAME]),
+            (C128_NAME, c128_cases, f64_counts[C128_NAME])):
+        def f64_case(k, cl=case_list):
+            return next(c for c in cl if c["storage"] == "N"
+                        and c["trans"] == "N" and c["k"] == k)
+        kernels.append({
+            "name": kern, "route": "cuda", "source": f64_src,
+            "replaces": "none: XLA in htool_python_tpu/ops/matvec.py:100",
+            "launches": launches,
+            "max_abs_err": max(c["max_abs_err"] for c in case_list),
+            "max_rel_err": max(c["max_rel_err"] for c in case_list),
+            "ms": f64_case(1)["ms"], "plain_ms": f64_case(1)["plain_ms"],
+            "bound_ms": f64_case(1)["bound_ms"],
+            "bound_by": f64_case(1)["bound_by"], "library_ms": None,
+            "bound_operations_rate": "FP64 tensor cores, 67 TFLOP/s",
+            "operator": (f"headline in float64, N={args.n}" if kern == F64_NAME
+                         else f"Helmholtz kernel in complex128, N={args.n_k2}"),
+            **{f"{key}_k{k}": f64_case(k)[key] for k in F64_KS[1:]
+               for key in ("ms", "plain_ms", "bound_ms")},
+            **({"launches_sharded": sharded_counts[f"float64/{F64_NAME}"],
+                "launches_sharded_gmres": sharded_counts.get(
+                    f"gmres/{F64_NAME}", 0)} if kern == F64_NAME else {})})
+    kernels[0]["launches_sharded_float32"] = sharded_counts[
+        f"float32/{KERNEL_NAME}"]
+    kernels[0]["launches_custom_hooks"] = hook_counts[KERNEL_NAME]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,16 +3,21 @@
 The port of htool_python_tpu (the JAX/Pallas reference, which stays in the
 repository unchanged) to PyTorch on an NVIDIA H100.  Cluster trees and
 block plans are computed on host (numpy); assembly (batched ACA, QR/SVD
-truncation, dense fills, recompression) runs as batched torch ops on the
-device; the compressed product runs the hand-written CUDA kernels K1 (real
-f32) and K2 (complex64), one body templated on the element type in
-csrc/hmatrix_product.cu, through ops/cuda_matvec.py on CUDA tensors, and their plain PyTorch version on CPU tensors (K1-al, K1 on
-the aligned low-rank layout, with config.matvec_aligned_layout).  H-LU /
-H-Cholesky (hmatrix/factorization.py, HODLR by randomized peeling in
-ops/hodlr.py), distributed operators (parallel/) and the one- and
-two-level (GenEO) Schwarz DDM solver with its dense and hierarchical
-local solvers and GMRES / CG (solvers/) run their products through the same kernels.  Entry points run
-on CUDA unless the caller passes device='cpu'.  Nothing here imports JAX or the reference package.
+truncation, dense fills, recompression, or the user's own low-rank and
+dense-block hooks) runs as batched torch ops on the device; the compressed
+product runs hand-written CUDA kernels through ops/cuda_matvec.py on CUDA
+tensors — K1 (real f32) and K2 (complex64), one body templated on the
+element type in csrc/hmatrix_product.cu (K1-al: K1 on the aligned low-rank
+layout, with config.matvec_aligned_layout), and their float64 /
+complex128 siblings in csrc/hmatrix_product_f64.cu — and their plain
+PyTorch version on CPU tensors.  H-LU / H-Cholesky
+(hmatrix/factorization.py, HODLR by randomized peeling in ops/hodlr.py),
+distributed operators (parallel/; sharded over processes on
+torch.distributed in parallel/sharded.py) and the one- and two-level
+(GenEO) Schwarz DDM solver with its dense and hierarchical local solvers
+and GMRES / CG (solvers/) run their products through the same kernels.
+Entry points run on CUDA unless the caller passes device='cpu'.  Nothing
+here imports JAX or the reference package.
 
 The names mirror the reference's public surface for the parts ported so
 far; `Complex*` aliases are the same classes (dtype is a property of the
@@ -37,7 +42,9 @@ from .hmatrix.generator import (
     FunctionGenerator,
     KernelGenerator,
     MatrixGenerator,
+    VirtualDenseBlocksGenerator,
     VirtualGenerator,
+    VirtualLowRankGenerator,
 )
 from .hmatrix.hmatrix import HMatrix, HMatrixTreeBuilder
 from .hmatrix.lowrank import LowRankMatrix
@@ -72,6 +79,8 @@ from .solvers.ddm import DDMSolver, DDMSolverBuilder, \
 from .utils.logger import logger, test_logger
 
 ComplexVirtualGenerator = VirtualGenerator
+ComplexVirtualLowRankGenerator = VirtualLowRankGenerator
+ComplexVirtualDenseBlocksGenerator = VirtualDenseBlocksGenerator
 ComplexLowRankMatrix = LowRankMatrix
 ComplexHMatrix = HMatrix
 ComplexHMatrixTreeBuilder = HMatrixTreeBuilder

@@ -9,11 +9,15 @@ device-executed where the generator allows it:
     re-truncation — or batched dense build + SVD for small buckets — and a
     rank-class packing into rank-major factors Ut (nb, r, pt), V (nb, r, ps);
   * host generators (`VirtualGenerator.build_submatrix`): per-block dense
-    fill + numpy SVD truncation.
+    fill + numpy SVD truncation;
+  * custom hooks: `VirtualLowRankGenerator` (per-block user compression,
+    False => densify; it turns the device ACA path off, as in the
+    reference) and `VirtualDenseBlocksGenerator` (ALL dense leaves in one
+    callback).  Their host arrays go into the padded device buckets and
+    through the same rank-class packing.
 
 Blocks whose compression fails or is not worthwhile (rank*(m+n) > m*n) are
-moved into the dense buckets before the dense fill.  The reference's
-custom low-rank and dense-blocks hooks are not ported yet (ROADMAP).
+moved into the dense buckets before the dense fill.
 """
 
 from __future__ import annotations
@@ -110,7 +114,8 @@ def _numpy_dtype(dtype: torch.dtype):
 
 
 def assemble(plan: BlockPlan, generator, epsilon: float, reqrank: int = -1,
-             dtype=None, device=None):
+             dtype=None, device=None, low_rank_generator=None,
+             dense_blocks_generator=None):
     """Returns (new_plan, dense_arrays, lr_arrays, lr_ranks).
 
     dense_arrays[i] : (nb, pt, ps) tensor for new_plan.dense_buckets[i]
@@ -119,14 +124,16 @@ def assemble(plan: BlockPlan, generator, epsilon: float, reqrank: int = -1,
     lr_ranks[i]     : (nb,) int32 numpy actual ranks
 
     A device generator assembles on its own device; a host generator needs
-    `device` for the result tensors.
+    `device` for the result tensors.  `low_rank_generator` (a
+    VirtualLowRankGenerator) compresses every admissible block on the host
+    instead of ACA; `dense_blocks_generator` (a
+    VirtualDenseBlocksGenerator) fills every dense leaf in one call.
     """
     require_full_f32()
     cfg = get_config()
     if dtype is None:
         dtype = cfg.default_dtype(getattr(generator, "is_complex", False))
-    use_device = _is_device_generator(generator)
-    if use_device:
+    if _is_device_generator(generator):
         if device is not None and torch.device(device) != generator.device:
             raise ValueError(f"generator lives on {generator.device}, "
                              f"assembly asked for {device}")
@@ -134,6 +141,10 @@ def assemble(plan: BlockPlan, generator, epsilon: float, reqrank: int = -1,
     elif device is None:
         raise ValueError("a host generator needs an explicit device")
     device = torch.device(device)
+    # a custom low-rank hook turns the device ACA path off (the reference's
+    # rule, htool_python_tpu/hmatrix/assembly.py:161)
+    use_device = (_is_device_generator(generator)
+                  and low_rank_generator is None)
 
     perm_t = plan.target_root.get_permutation()
     perm_s = plan.source_root.get_permutation()
@@ -198,9 +209,16 @@ def assemble(plan: BlockPlan, generator, epsilon: float, reqrank: int = -1,
             continue
 
         t0 = time.perf_counter()
-        U, V, ranks, ok = _host_lr_bucket(
-            generator, b, perm_t, perm_s, t_base, s_base, epsilon, reqrank,
-            _numpy_dtype(dtype))
+        if low_rank_generator is not None:
+            U, V, ranks, ok = _custom_lr_bucket(
+                low_rank_generator, b,
+                _bucket_user_indices(perm_t, t_base, b, "t"),
+                _bucket_user_indices(perm_s, s_base, b, "s"), epsilon,
+                _numpy_dtype(dtype))
+        else:
+            U, V, ranks, ok = _host_lr_bucket(
+                generator, b, perm_t, perm_s, t_base, s_base, epsilon,
+                reqrank, _numpy_dtype(dtype))
         ASSEMBLY_PROFILE["lr_aca_s"] += time.perf_counter() - t0
         t0 = time.perf_counter()
         worth = ranks * (b.t_sz + b.s_sz) <= b.t_sz * b.s_sz
@@ -234,7 +252,11 @@ def assemble(plan: BlockPlan, generator, epsilon: float, reqrank: int = -1,
 
     t_dense0 = time.perf_counter()
     dense_arrays = []
-    if use_device:
+    if dense_blocks_generator is not None:
+        dense_arrays = _custom_dense_buckets(
+            dense_blocks_generator, dense_buckets, perm_t, perm_s, t_base,
+            s_base, _numpy_dtype(dtype), device)
+    elif use_device:
         for b in dense_buckets:
             rows_idx = _bucket_user_indices(perm_t, t_base, b, "t")
             cols_idx = _bucket_user_indices(perm_s, s_base, b, "s")
@@ -314,6 +336,58 @@ def _host_lr_bucket(gen, b, perm_t, perm_s, t_base, s_base, epsilon,
             Uarr[i, :b.t_sz[i], :ranks[i]] = Us[i]
             Varr[i, :ranks[i], :b.s_sz[i]] = Vs[i]
     return Uarr, Varr, ranks, ok
+
+
+def _custom_lr_bucket(lrg, b, rows_idx, cols_idx, epsilon, np_dtype):
+    """User VirtualLowRankGenerator: one call per block with its user rows
+    and columns; False => densify.  Returns (U (nb, pt, rmax), V (nb, rmax,
+    ps), ranks, ok) as `_host_lr_bucket` does."""
+    rmax = 1
+    Us, Vs = [], []
+    ranks = np.zeros(b.nb, np.int32)
+    ok = np.zeros(b.nb, bool)
+    for i in range(b.nb):
+        rows = rows_idx[i, :b.t_sz[i]]
+        cols = cols_idx[i, :b.s_sz[i]]
+        if lrg.build_low_rank_approximation(rows, cols, epsilon):
+            U, V = lrg.take_uv()
+            Us.append(U)
+            Vs.append(V)
+            ranks[i] = U.shape[1]
+            ok[i] = True
+            rmax = max(rmax, U.shape[1])
+        else:
+            Us.append(None)
+            Vs.append(None)
+    Uarr = np.zeros((b.nb, b.pt, rmax), dtype=np_dtype)
+    Varr = np.zeros((b.nb, rmax, b.ps), dtype=np_dtype)
+    for i in np.flatnonzero(ok):
+        Uarr[i, :b.t_sz[i], :ranks[i]] = Us[i]
+        Varr[i, :ranks[i], :b.s_sz[i]] = Vs[i]
+    return Uarr, Varr, ranks, ok
+
+
+def _custom_dense_buckets(dbg, dense_buckets, perm_t, perm_s, t_base, s_base,
+                          np_dtype, device):
+    """User VirtualDenseBlocksGenerator: ONE call with every dense leaf
+    (user rows, user columns, a zeroed Fortran-ordered block each), then
+    each bucket's blocks padded into one device tensor."""
+    rows, cols, mats = [], [], []
+    for b in dense_buckets:
+        for i in range(b.nb):
+            r0, c0 = t_base + b.t_off[i], s_base + b.s_off[i]
+            rows.append(perm_t[r0:r0 + b.t_sz[i]])
+            cols.append(perm_s[c0:c0 + b.s_sz[i]])
+            mats.append(np.zeros((b.t_sz[i], b.s_sz[i]), dtype=np_dtype,
+                                 order="F"))
+    dbg.build_dense_blocks(rows, cols, mats)
+    out, it = [], iter(mats)
+    for b in dense_buckets:
+        D = np.zeros((b.nb, b.pt, b.ps), dtype=np_dtype)
+        for i in range(b.nb):
+            D[i, :b.t_sz[i], :b.s_sz[i]] = next(it)
+        out.append(torch.as_tensor(D, device=device))
+    return out
 
 
 def _bucket_rmax(b, cfg) -> int:

@@ -10,6 +10,9 @@ Counterpart of htool_python_tpu/hmatrix/generator.py:
     live as tensors on `device`, and `device_blocks` / `device_rows` /
     `device_cols` evaluate whole batches of blocks, rows or columns there.
     Assembly with them runs entirely on the device, batched per bucket.
+  * `VirtualLowRankGenerator` / `VirtualDenseBlocksGenerator` — the user's
+    own compression of each low-rank block and assembly of the dense
+    leaves (a BEM code's hooks), on the host, in numpy.
 """
 
 from __future__ import annotations
@@ -118,3 +121,63 @@ class KernelGenerator(VirtualGenerator):
 
     def device_cols(self, t_idx, s_idx):
         return self.kernel(self._tx[t_idx], self._sx[s_idx][:, None, :])
+
+
+class VirtualLowRankGenerator:
+    """Custom low-rank approximation hook (reference:
+    virtual_low_rank_generator.hpp:15-92).
+
+    Subclass implements `build_low_rank_approximation(rows, cols, epsilon)`
+    (user-numbered rows and columns of one admissible block), calling
+    `set_U(U)` (len(rows) x r) / `set_V(V)` (r x len(cols)) and returning
+    True, or returning False to assemble that block dense.  Assembly copies
+    the factors into its padded device buckets; with `allow_copy=False`
+    the generator also keeps every array it was given until `clear_data()`
+    (the reference's ownership protocol).
+    """
+
+    def __init__(self, allow_copy: bool = True):
+        self._allow_copy = allow_copy
+        self._U = None
+        self._V = None
+        self._stored = []
+
+    def build_low_rank_approximation(self, rows, cols, epsilon) -> bool:
+        raise NotImplementedError  # pragma: no cover - abstract
+
+    def set_U(self, U):
+        self._U = np.asarray(U)
+        if not self._allow_copy:
+            self._stored.append(self._U)
+
+    def set_V(self, V):
+        self._V = np.asarray(V)
+        if not self._allow_copy:
+            self._stored.append(self._V)
+
+    def clear_data(self):
+        self._stored.clear()
+
+    def take_uv(self):
+        """The factors of the last successful call, handed over once."""
+        U, V = self._U, self._V
+        self._U = None
+        self._V = None
+        return U, V
+
+
+class VirtualDenseBlocksGenerator:
+    """Batched dense-leaf hook (reference:
+    virtual_dense_blocks_generator.hpp:11-69): every dense leaf of a build,
+    blocks densified by the low-rank test included, is handed over in ONE
+    call, `build_dense_blocks(rows_offsets, cols_offsets, blocks)`: lists of
+    user-numbered row and column index arrays and of zeroed
+    Fortran-ordered (len(rows), len(cols)) numpy arrays to fill in
+    place."""
+
+    def __init__(self, target_cluster=None, source_cluster=None):
+        self.target_cluster = target_cluster
+        self.source_cluster = source_cluster
+
+    def build_dense_blocks(self, rows_offsets, cols_offsets, blocks) -> None:
+        raise NotImplementedError  # pragma: no cover - abstract

@@ -458,8 +458,18 @@ class HMatrixTreeBuilder:
             raise ValueError("UPLO must be 'N', 'L' or 'U'")
         if symmetry in ("S", "H") and UPLO == "N":
             raise ValueError("symmetric/hermitian requires UPLO 'L' or 'U'")
-        if low_rank_strategy is not None:
-            self.set_low_rank_generator(low_rank_strategy)
+        # reference semantics (hmatrix_tree_builder.hpp:23-32): the
+        # constructor's spelling of set_low_rank_generator, not a
+        # strategy-name string
+        if low_rank_strategy is not None and not hasattr(
+                low_rank_strategy, "build_low_rank_approximation"):
+            raise TypeError(
+                "low_rank_strategy must be a VirtualLowRankGenerator "
+                "(reference: hmatrix_tree_builder.hpp:23-32); got "
+                f"{type(low_rank_strategy).__name__}")
+        self.low_rank_strategy = low_rank_strategy
+        self._low_rank_generator = low_rank_strategy
+        self._dense_blocks_generator = None
         self.epsilon = float(epsilon)
         self.eta = float(eta)
         self.symmetry = symmetry
@@ -472,14 +482,14 @@ class HMatrixTreeBuilder:
         self._dtype = None
 
     def set_low_rank_generator(self, gen):
-        raise NotImplementedError(
-            "custom low-rank generators are not ported yet (ROADMAP queue 1: "
-            "custom low-rank and dense-block hooks)")
+        """Compress every admissible block with `gen` (a
+        VirtualLowRankGenerator) on the host instead of ACA."""
+        self._low_rank_generator = gen
 
     def set_dense_blocks_generator(self, gen):
-        raise NotImplementedError(
-            "custom dense-block generators are not ported yet (ROADMAP queue "
-            "1: custom low-rank and dense-block hooks)")
+        """Fill every dense leaf with `gen` (a VirtualDenseBlocksGenerator),
+        in one call per build."""
+        self._dense_blocks_generator = gen
 
     def set_minimal_target_depth(self, d: int):
         self._minimal_target_depth = int(d)
@@ -553,11 +563,13 @@ class HMatrixTreeBuilder:
             dtype = get_config().default_dtype(
                 getattr(generator, "is_complex", False))
         new_plan, dense_arrays, lr_arrays, lr_ranks = assemble(
-            plan, generator, self.epsilon, self.reqrank, dtype, self.device)
+            plan, generator, self.epsilon, self.reqrank, dtype, self.device,
+            self._low_rank_generator, self._dense_blocks_generator)
         h = HMatrix(new_plan, dense_arrays, lr_arrays, lr_ranks,
                     self.epsilon, dtype, self.device)
-        # every assembly path (device ACA or dense + QR/SVD truncation, host
-        # SVD) leaves SVD pairs: recompression may take its O(bytes) trim
-        h._lr_svd_form = True
+        # every default assembly path (device ACA or dense + QR/SVD
+        # truncation, host SVD) leaves SVD pairs: recompression may take its
+        # O(bytes) trim; a custom low-rank hook's factors are of unknown form
+        h._lr_svd_form = self._low_rank_generator is None
         return h
 

@@ -6,7 +6,9 @@ mirror)]} (its ops/matvec.py apply_hmatrix_padded docstring) and its plan
 buckets as dataclasses of numpy arrays.  The functions here take those
 after `np.asarray` on every leaf, or the bucket objects read attribute by
 attribute, and import nothing of the reference.  A reference distributed
-operator's block rows come over the same way (`distributed_from_reference`).
+operator's block rows come over the same way (`block_rows_from_reference`),
+into the port's DistributedOperator (`distributed_from_reference`) or its
+ShardedDistributedOperator.
 """
 
 from __future__ import annotations
@@ -94,6 +96,18 @@ def block_row_from_reference(target_cluster: Cluster, source_cluster: Cluster,
                                device)
 
 
+def block_rows_from_reference(target_cluster: Cluster,
+                              source_cluster: Cluster, block_rows,
+                              device=None) -> list:
+    """The block rows of a reference `DefaultApproximationBuilder` as port
+    HMatrices, one per partition (the `hmatrices` of the port's
+    ShardedDistributedOperator).  `block_rows[p]` = (ref_plan, np_tree,
+    lr_ranks, epsilon) of partition p; see block_row_from_reference."""
+    return [block_row_from_reference(target_cluster, source_cluster, p, *row,
+                                     device=device)
+            for p, row in enumerate(block_rows)]
+
+
 def distributed_from_reference(target_cluster: Cluster,
                                source_cluster: Cluster, block_rows,
                                device=None) -> DistributedOperator:
@@ -106,9 +120,9 @@ def distributed_from_reference(target_cluster: Cluster,
                              device=resolve_device(device))
     src = LocalRenumbering(0, source_cluster.get_size(),
                            source_cluster.get_permutation())
-    for p, row in enumerate(block_rows):
-        local = LocalHMatrix(block_row_from_reference(
-            target_cluster, source_cluster, p, *row, device=device))
+    for p, h in enumerate(block_rows_from_reference(
+            target_cluster, source_cluster, block_rows, device)):
+        local = LocalHMatrix(h)
         local.local_source_renumbering = src
         op.add_global_to_local_operator(local, p)
     return op

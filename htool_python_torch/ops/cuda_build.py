@@ -24,6 +24,8 @@ BUILD_DIR = _PKG.parent / "build"
 
 # kernel library name -> source file under csrc/
 SOURCES = {"hmatrix_product": "hmatrix_product.cu",  # K1, K2
+           # float64 and complex128 products
+           "hmatrix_product_f64": "hmatrix_product_f64.cu",
            "stream_probe": "stream_probe.cu",  # P1, P2
            "bucket_variants": "bucket_variants.cu"}  # P3, P4
 

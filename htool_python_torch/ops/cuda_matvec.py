@@ -1,4 +1,5 @@
-"""Kernels K1 and K2 on Hopper: the bucketed H-matrix product.
+"""Kernels K1 and K2 on Hopper, and their float64 / complex128 siblings:
+the bucketed H-matrix product.
 
 K1, the real f32 product, is the counterpart of
 htool_python_tpu/ops/pallas_matvec.py `apply_hmatrix_pallas`; K2, the
@@ -60,15 +61,29 @@ raises.  The data's dtype picks the kernel:
     is conjugated; the wrapper turns both into one conjugation flag per
     direction of a block (ops/matvec.py `conj_flags`, the plain version's
     conj_main / conj_mirror).
-  * float64 or complex128 on CUDA: NotImplementedError (ROADMAP item 22;
-    the TPU had no f64 kernel either).
+  * float64 data: `hmatrix_product_f64` (csrc/hmatrix_product_f64.cu),
+    with a float32 x promoted to float64, and a complex x (complex64 or
+    complex128) through the real view at float64, as K1 takes a complex x.
+  * complex128 data: `hmatrix_product_complex128`, the same body on
+    complex128, with a real or complex64 x promoted to complex128 and the
+    conjugation flags of K2.
+    These two replace no TPU kernel (the reference computes f64 and
+    complex128 in XLA, htool_python_tpu/ops/matvec.py:100); they walk the
+    same work list at 8 / 16 bytes an element, in passes of PASS_COLS
+    columns, and have one launch structure: under 'per_bucket' or 'seq'
+    they raise NotImplementedError (ROADMAP item 1 adds no call sites to
+    that knob).  LAUNCH_COUNTS counts them under their own names.
+  * float32 or complex64 data with a float64 or complex128 x: the
+    reference promotes the operator; the port raises NotImplementedError
+    (ROADMAP section 3, fault 8) rather than compute in a narrower type.
 
 Tolerance: many blocks add into the same rows of y with f32 atomicAdd, in
 an order that changes from run to run, so either kernel agrees with the
 plain version to f32 summation round-off (checked at 1e-5 relative), not
-bit for bit.  From 9 columns both multiply on the tensor cores in 3xTF32
-(each f32 operand split into two TF32 parts; K2 over the interleaved
-real columns), which keeps f32's round-off.
+bit for bit; the float64 / complex128 kernels, with f64 atomics, to f64
+round-off (checked at 1e-12).  From 9 columns K1 and K2 multiply on the
+tensor cores in 3xTF32 (each f32 operand split into two TF32 parts; K2
+over the interleaved real columns), which keeps f32's round-off.
 
 The operand's device decides: CPU tensors go to the plain version; on a
 CUDA tensor this always launches a kernel or raises, never falls back.
@@ -87,13 +102,18 @@ from .matvec import apply_hmatrix_padded, conj_flags, is_aligned, work_list
 KERNEL_NAME = "hmatrix_product"  # K1
 K2_NAME = "hmatrix_product_complex"
 ALIGNED_NAME = "hmatrix_product/aligned"  # K1-al
+F64_NAME = "hmatrix_product_f64"
+C128_NAME = "hmatrix_product_complex128"
+F64_LIBRARY = "hmatrix_product_f64"  # csrc/hmatrix_product_f64.cu
 
 MODES = ("fused", "per_bucket", "seq")
 
 # columns of one launch by the data's dtype (an x row of kMaxCols = 128
-# floats in csrc/hmatrix_product.cu); a wider x runs in passes of this many
-# columns
-PASS_COLS = {torch.float32: 128, torch.complex64: 64}
+# floats in csrc/hmatrix_product.cu; kPass in csrc/hmatrix_product_f64.cu,
+# where w of an item's rows x one pass fills 32 KB / 16 KB of shared
+# memory); a wider x runs in passes of this many columns
+PASS_COLS = {torch.float32: 128, torch.complex64: 64, torch.float64: 64,
+             torch.complex128: 32}
 
 
 def launch_name(kernel: str, mode: str) -> str:
@@ -106,12 +126,12 @@ def launch_name(kernel: str, mode: str) -> str:
 LAUNCH_COUNTS = {launch_name(kern, mode): 0 for kern in (KERNEL_NAME, K2_NAME)
                  for mode in MODES}
 LAUNCH_COUNTS[ALIGNED_NAME] = 0
+LAUNCH_COUNTS[F64_NAME] = 0
+LAUNCH_COUNTS[C128_NAME] = 0
 
 # the data dtype each kernel takes
-_KERNEL_OF = {torch.float32: KERNEL_NAME, torch.complex64: K2_NAME}
-
-_F64_ITEM = ("float64 and complex128 products on CUDA are not ported: "
-             "ROADMAP queue 1, item 22")
+_KERNEL_OF = {torch.float32: KERNEL_NAME, torch.complex64: K2_NAME,
+              torch.float64: F64_NAME, torch.complex128: C128_NAME}
 
 
 def reset_launch_counts() -> None:
@@ -158,6 +178,25 @@ def _library():
     return lib
 
 
+def _f64_library():
+    """The float64 / complex128 kernels' library, as `_library`."""
+    if F64_LIBRARY in _LIBS:
+        return _LIBS[F64_LIBRARY]
+    from .cuda_build import load
+
+    lib = load(F64_LIBRARY)
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    # items, n_items, x, lx, y, ly, k, swapped, symmetric[, conj_fwd,
+    # conj_tr], stream
+    lib.hm_f64_launch.argtypes = [p, ll, p, ll, p, ll, i, i, i, p]
+    lib.hm_c128_launch.argtypes = [p, ll, p, ll, p, ll, i, i, i, i, i, p]
+    lib.hm_f64_launch.restype = lib.hm_c128_launch.restype = i
+    lib.hm_f64_error_string.argtypes = [i]
+    lib.hm_f64_error_string.restype = ctypes.c_char_p
+    _LIBS[F64_LIBRARY] = lib
+    return lib
+
+
 def _data_dtype(data):
     """dtype of the data's first stored tensor (None without buckets)."""
     for kind in ("dense", "lr"):
@@ -167,11 +206,9 @@ def _data_dtype(data):
 
 
 def _check_dtype(dtype, name):
-    if dtype in (torch.float64, torch.complex128):
-        raise NotImplementedError(f"{name} is {dtype}: {_F64_ITEM}")
     if dtype not in _KERNEL_OF:
-        raise TypeError(f"{name} has dtype {dtype}, want float32 or "
-                        "complex64")
+        raise TypeError(f"{name} has dtype {dtype}, want float32, "
+                        "complex64, float64 or complex128")
 
 
 def _check_operand(t, name, device, ndim, dtype):
@@ -275,7 +312,7 @@ def _extent(data) -> int:
 
 
 class BucketTable:
-    """One operator's bucket data as K1 or K2 takes it, checked once.
+    """One operator's bucket data as the kernels take it, checked once.
 
     `dtype` is the data's dtype, which picks the kernel; a product refuses
     data of another dtype.  `extent` is where the furthest block segment
@@ -320,12 +357,38 @@ class BucketTable:
                     data, self.work.by_bucket, device)
 
 
+def _launch_f64(name, table, x, y, trans, sym):
+    """Kernel `name` (hmatrix_product_f64 or hmatrix_product_complex128)
+    over the work list of `table` largest first, x (L, k) into the zeroed y
+    (ny, k), both of the kernel's dtype: one launch per pass of PASS_COLS
+    columns."""
+    lib = _f64_library()
+    L, k = x.shape
+    io = (x.data_ptr(), L, y.data_ptr(), y.shape[0], k, int(trans != "N"),
+          int(sym != "N"))
+    if name == C128_NAME:
+        fn = lib.hm_c128_launch
+        io += tuple(int(c) for c in conj_flags(trans, sym))
+    else:
+        fn = lib.hm_f64_launch
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        rc = fn(table.items.data_ptr(), len(table.work.items), *io, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
+                           f"({lib.hm_f64_error_string(rc).decode()})")
+    LAUNCH_COUNTS[name] += -(-k // PASS_COLS[x.dtype])
+
+
 def _launch(name, mode, table, x, y, trans, sym):
-    """Kernel `name` (K1 or K2) in launch structure `mode` over the work
-    list of `table`, x (L, k) into the zeroed y (ny, k); x and y hold the
-    kernel's dtype.  'fused' (K1-al on aligned real data) and 'seq' launch
+    """Kernel `name` in launch structure `mode` over the work list of
+    `table`, x (L, k) into the zeroed y (ny, k); x and y hold the kernel's
+    dtype.  K1 / K2: 'fused' (K1-al on aligned real data) and 'seq' launch
     once per pass of PASS_COLS columns, over the list largest first and in
-    bucket order; 'per_bucket' once per bucket and pass."""
+    bucket order; 'per_bucket' once per bucket and pass.  The float64 and
+    complex128 kernels have the 'fused' structure only."""
+    if name in (F64_NAME, C128_NAME):  # 'fused' only (`dispatch`)
+        return _launch_f64(name, table, x, y, trans, sym)
     lib = _library()
     aligned = name == KERNEL_NAME and mode == "fused" and table.aligned
     counter = ALIGNED_NAME if aligned else launch_name(name, mode)
@@ -361,22 +424,49 @@ def _launch(name, mode, table, x, y, trans, sym):
 
 
 def real_view_product(real_product, x_pad, ny_pad: int):
-    """H x_pad for a real f32 operator H and a complex64 x_pad (L, k): H is
-    real, so H (a + ib) = H a + i H b.  x_pad is read as its (L, 2k) f32
+    """H x_pad for a real operator H and a complex x_pad (L, k) of the
+    matching width (f32 data with complex64, f64 with complex128): H is
+    real, so H (a + ib) = H a + i H b.  x_pad is read as its (L, 2k) real
     view (re, im interleaved per column, no copy) and
-    `real_product(x_real, y_real)` adds H x_real into the (ny_pad, 2k) f32
+    `real_product(x_real, y_real)` adds H x_real into the (ny_pad, 2k) real
     view of the zeroed complex result, which is returned."""
     L, k = x_pad.shape
-    y = torch.zeros((ny_pad, k), dtype=torch.complex64, device=x_pad.device)
+    y = torch.zeros((ny_pad, k), dtype=x_pad.dtype, device=x_pad.device)
     real_product(torch.view_as_real(x_pad).reshape(L, 2 * k),
                  torch.view_as_real(y).reshape(ny_pad, 2 * k))
     return y
 
 
+def dispatch(data_dtype, x_dtype, mode: str = "fused"):
+    """(kernel, dtype of x and y, real view) of a CUDA product of
+    `data_dtype` data with an x of `x_dtype` in launch structure `mode`:
+    the data's dtype picks the kernel, x is promoted to the data's width,
+    and a real operator takes a complex x through its real view
+    (`real_view_product`).  Raises NotImplementedError where x is wider
+    than the data (the reference promotes the operator; ROADMAP section 3,
+    fault 8) and for the float64 / complex128 kernels in another structure
+    than 'fused'; TypeError for another dtype."""
+    _check_dtype(data_dtype, "the operator")
+    _check_dtype(x_dtype, "x_pad")
+    dtype = torch.promote_types(data_dtype, x_dtype)
+    if dtype.to_real() != data_dtype.to_real():
+        raise NotImplementedError(
+            f"{data_dtype} data with a {x_dtype} x: the reference promotes "
+            "the operator, the port does not compute it in a narrower type "
+            "(ROADMAP section 3, fault 8)")
+    name = _KERNEL_OF[data_dtype]
+    if name in (F64_NAME, C128_NAME) and mode != "fused":
+        raise NotImplementedError(
+            f"{name} has one launch structure ('fused'), not {mode!r}: "
+            "ROADMAP item 1 adds no call sites to matvec_kernel_mode")
+    return name, dtype, dtype.is_complex and not data_dtype.is_complex
+
+
 def apply_hmatrix_cuda(data, x_pad, ny_pad: int, trans: str, sym: str,
                        table: BucketTable | None = None):
-    """y_pad (ny_pad, k) = H^(trans) x_pad through kernel K1 or K2 (CUDA
-    tensors) or their plain version (CPU tensors).  `table`: the data's
+    """y_pad (ny_pad, k) = H^(trans) x_pad through kernel K1, K2 or their
+    float64 / complex128 siblings (CUDA tensors) or their plain version
+    (CPU tensors).  `table`: the data's
     BucketTable, built here when not given.  See the module docstring."""
     if trans not in ("N", "T", "C"):
         raise ValueError(f"trans must be 'N', 'T' or 'C', got {trans!r}")
@@ -398,15 +488,16 @@ def apply_hmatrix_cuda(data, x_pad, ny_pad: int, trans: str, sym: str,
     mode = kernel_mode()
     if device.type == "cpu":
         return apply_hmatrix_padded(data, x_pad, ny_pad, trans, sym)
-    _check_dtype(x_pad.dtype, "x_pad")
-    dtype = (x_pad.dtype if table.dtype is None
-             else torch.promote_types(table.dtype, x_pad.dtype))
     k = x_pad.shape[1]
+    if table.dtype is None:
+        _check_dtype(x_pad.dtype, "x_pad")
+        return torch.zeros((ny_pad, k), dtype=x_pad.dtype, device=device)
+    name, dtype, real_view = dispatch(table.dtype, x_pad.dtype, mode)
     if table.n_blocks == 0 or k == 0:
         return torch.zeros((ny_pad, k), dtype=dtype, device=device)
-    name = _KERNEL_OF[table.dtype]
-    if table.dtype == torch.float32 and dtype == torch.complex64:
-        _check_operand(x_pad, "x_pad", device, 2, torch.complex64)
+    if real_view:
+        x_pad = x_pad.to(dtype)
+        _check_operand(x_pad, "x_pad", device, 2, dtype)
         return real_view_product(
             lambda xr, yr: _launch(name, mode, table, xr, yr, trans, sym),
             x_pad, ny_pad)

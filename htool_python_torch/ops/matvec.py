@@ -11,8 +11,9 @@ Symmetric ('S') / hermitian ('H') storage keeps one triangle only; blocks
 flagged `mirror` additionally contribute their (conj-)transpose.
 
 `apply_hmatrix_padded` is the plain PyTorch version of kernels K1 (real
-f32) and K2 (complex64), both in ops/cuda_matvec.py: the CPU path, and
-what the kernels are held against on the card.  `index_add_` does the
+f32) and K2 (complex64) and of their float64 / complex128 siblings, all
+in ops/cuda_matvec.py: the CPU path, and what the kernels are held
+against on the card.  `index_add_` does the
 scatter; on CUDA its summation order is not deterministic, on the CPU it
 is.
 """

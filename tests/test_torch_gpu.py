@@ -1,8 +1,10 @@
 """Kernels K1 and K2 (one body, csrc/hmatrix_product.cu) against their
 plain version on the card, in each launch structure, K1-al on the aligned
 low-rank layout, the HODLR factorization through K1 and K1-al, one- and
-two-level (GenEO) DDM solves on the golden data, and the profiling path's
-kernels P1-P4 (skips without a card).
+two-level (GenEO) DDM solves on the golden data, the profiling path's
+kernels P1-P4, the float64 / complex128 kernels
+(csrc/hmatrix_product_f64.cu; within 1e-12, f64 atomics) and the sharded
+operator on a world-1 NCCL group (skips without a card).
 
 Run on a machine with a CUDA device:
     python -m pytest --noconftest tests/test_torch_gpu.py
@@ -71,7 +73,8 @@ def test_k1_matches_plain_version(cuda_device):
         y_host = hm.matvec(x_user.cpu().numpy())
         assert (np.linalg.norm(y_dev.cpu().numpy() - y_host)
                 <= 1e-5 * np.linalg.norm(y_host))
-    with pytest.raises(NotImplementedError, match="item 22"):
+    # a float64 x on float32 data: the port does not promote the operator
+    with pytest.raises(NotImplementedError, match="fault 8"):
         cuda_matvec.apply_hmatrix_cuda(hm._data, x.double(), L, "N",
                                        symmetry)
     # a y one row short of the furthest block segment is refused
@@ -136,7 +139,7 @@ def test_k2_matches_plain_version(cuda_device):
         y_plain = apply_hmatrix_padded(hm._data, xr, L, "N", symmetry)
         assert y.dtype == torch.complex64
         assert (y - y_plain).abs().max() <= 1e-5 * y_plain.abs().max()
-    with pytest.raises(NotImplementedError, match="item 22"):
+    with pytest.raises(NotImplementedError, match="fault 8"):
         cuda_matvec.apply_hmatrix_cuda(hm._data, x.to(torch.complex128), L,
                                        "N", symmetry, table)
 
@@ -861,3 +864,130 @@ def test_take_along_axis_matches_plain_version(cuda_device):
     assert out[2, 5] == 0 and int(fault.item()) == 3
     with pytest.raises(IndexError):
         bv.check_fault(fault, 333)
+
+
+def _wide_buckets(dtype, device, symmetry, seed=0, L=4096):
+    """Buckets that split into items (192-row dense blocks, rank-70 and
+    rank-8 low-rank blocks) with random mirror flags, ~3 000 items: more
+    than the persistent grid holds, so every CTA walks several and the
+    last ones fewer."""
+    rng = np.random.RandomState(seed)
+
+    def a(*shape):
+        v = rng.randn(*shape)
+        if dtype.is_complex:
+            v = v + 1j * rng.randn(*shape)
+        return torch.as_tensor(v).to(dtype).to(device)
+
+    def meta(nb, pt, ps):
+        mirror = (rng.rand(nb) < 0.5) & (symmetry != "N")
+        return tuple(torch.as_tensor(v, device=device) for v in (
+            rng.randint(0, L - pt, nb).astype(np.int32),
+            rng.randint(0, L - ps, nb).astype(np.int32), mirror))
+
+    return {"dense": [(a(5, 192, 128), *meta(5, 192, 128)),
+                      (a(300, 64, 64), *meta(300, 64, 64))],
+            "lr": [(a(7, 70, 96), a(7, 70, 160), *meta(7, 96, 160)),
+                   (a(2600, 8, 64), a(2600, 8, 64), *meta(2600, 64, 64))]}, L
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+def test_f64_kernels_match_plain_version(cuda_device, dtype):
+    """hmatrix_product_f64 / hmatrix_product_complex128 against the plain
+    version within 1e-12: every storage and trans, k from one column to
+    more than one pass (64 real / 32 complex columns a pass), narrow and
+    wide passes; a real x promoted, a complex x on real data through the
+    real view; one launch per pass counted."""
+    name = cuda_matvec.dispatch(dtype, dtype)[0]
+    storages = ("N", "S", "H") if dtype.is_complex else ("N", "S")
+    for symmetry in storages:
+        data, L = _wide_buckets(dtype, cuda_device, symmetry)
+        table = cuda_matvec.BucketTable(data, cuda_device)
+        assert len(table.work.items) > 2 * 132 * 8
+        for trans in ("N", "T", "C") if dtype.is_complex else ("N", "T"):
+            for k in (1, 2, 3, 8, 9, 33, 65, 129):
+                g = torch.Generator(cuda_device).manual_seed(k)
+                x = torch.randn((L, k), dtype=dtype, device=cuda_device,
+                                generator=g)
+                before = cuda_matvec.LAUNCH_COUNTS[name]
+                y = cuda_matvec.apply_hmatrix_cuda(data, x, L, trans,
+                                                   symmetry, table)
+                torch.cuda.synchronize()
+                passes = -(-k // cuda_matvec.PASS_COLS[dtype])
+                assert cuda_matvec.LAUNCH_COUNTS[name] == before + passes
+                y_plain = apply_hmatrix_padded(data, x, L, trans, symmetry)
+                err = (y - y_plain).abs().max() / y_plain.abs().max()
+                assert err <= 1e-12, (symmetry, trans, k, float(err))
+        other = (torch.float32 if not dtype.is_complex
+                 else torch.complex64)
+        x = torch.randn((L, 3), dtype=other, device=cuda_device)
+        y = cuda_matvec.apply_hmatrix_cuda(data, x, L, "N", symmetry, table)
+        y_plain = apply_hmatrix_padded(data, x, L, "N", symmetry)
+        assert y.dtype == y_plain.dtype
+        assert (y - y_plain).abs().max() <= 1e-12 * y_plain.abs().max()
+    if not dtype.is_complex:  # the real view at float64
+        x = torch.randn((L, 3), dtype=torch.complex128, device=cuda_device)
+        y = cuda_matvec.apply_hmatrix_cuda(data, x, L, "N", "S", table)
+        y_plain = apply_hmatrix_padded(data, x, L, "N", "S")
+        assert y.dtype == torch.complex128
+        assert (y - y_plain).abs().max() <= 1e-12 * y_plain.abs().max()
+    cfg = get_config()
+    cfg.matvec_kernel_mode = "seq"
+    try:
+        with pytest.raises(NotImplementedError, match="one launch structure"):
+            cuda_matvec.apply_hmatrix_cuda(data, x, L, "N", "N", table)
+    finally:
+        cfg.matvec_kernel_mode = "fused"
+
+
+@pytest.mark.gpu
+def test_sharded_f64_product_on_a_world_of_one(cuda_device):
+    """The sharded operator on a world-1 NCCL group, P = 4 partitions on
+    the one rank, float64: 'N', 'T' and 3-column products within 1e-10 of
+    the single-process DistributedOperator and of the block rows' dense
+    matrix, through hmatrix_product_f64."""
+    import socket
+
+    import torch.distributed as dist
+
+    from htool_python_torch.parallel import (ShardedDistributedOperator,
+                                             initialize_distributed)
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    assert initialize_distributed(f"tcp://127.0.0.1:{port}", 1, 0, "nccl")
+    try:
+        n = 2000
+        points = np.random.RandomState(1).rand(3, n)
+        builder = T.ClusterTreeBuilder()
+        builder.set_maximal_leaf_size(64)
+        cluster = builder.create_cluster_tree(points, 2, size_of_partition=4)
+        hb = T.HMatrixTreeBuilder(1e-6, 10.0, "N", "N", device=cuda_device)
+        approx = T.DefaultApproximationBuilder(
+            T.KernelGenerator(inverse_distance_kernel(0.1), points, points,
+                              device=cuda_device), cluster, cluster, hb)
+        op = ShardedDistributedOperator(approx.hmatrix, cluster, cluster)
+        assert op.dtype == torch.float64 and op.partitions == range(4)
+        rng = np.random.RandomState(2)
+        x, X = rng.rand(n), rng.rand(n, 3)
+        before = cuda_matvec.LAUNCH_COUNTS[cuda_matvec.F64_NAME]
+        y = op * x
+        assert cuda_matvec.LAUNCH_COUNTS[cuda_matvec.F64_NAME] == before + 4
+        y_ref = approx.distributed_operator * x
+        assert np.linalg.norm(y - y_ref) <= 1e-10 * np.linalg.norm(y_ref)
+        Y_ref = approx.distributed_operator @ X
+        assert (np.linalg.norm(op @ X - Y_ref)
+                <= 1e-10 * np.linalg.norm(Y_ref))
+        dense = np.zeros((n, n))
+        for p, h in enumerate(approx.hmatrix):
+            o, s = int(op.t_offsets[p]), int(op.t_sizes[p])
+            rows = cluster.get_permutation()[o:o + s]
+            dense[np.sort(rows)] = h.to_dense_in_user_numbering()
+        yt = op.matvec_global(torch.as_tensor(x, device=cuda_device), "T")
+        assert yt.device.type == "cuda"
+        assert (np.linalg.norm(yt.cpu().numpy() - dense.T @ x)
+                <= 1e-10 * np.linalg.norm(dense.T @ x))
+    finally:
+        dist.destroy_process_group()

@@ -5,8 +5,8 @@ Assembly runs in both packages from the same points; the port's operator
 must meet epsilon against the dense kernel matrix (the reference's
 contract, tests/test_hmatrix.py), and the two densified operators must
 agree to 2 * epsilon relative to the dense matrix.  Also: the device rule
-(CUDA by default, never a silent CPU fallback), the hooks this slice does
-not port yet, and the import guard (the port never imports JAX or the
+(CUDA by default, never a silent CPU fallback), the custom low-rank and
+dense-block hooks, and the import guard (the port never imports JAX or the
 reference package).
 """
 
@@ -161,12 +161,55 @@ def test_generator_and_builder_devices_must_agree():
         hb.build(gen, cluster, cluster)
 
 
+class _SVDHook(T.VirtualLowRankGenerator):
+    """Truncated SVD of each admissible block of `matrix`."""
+
+    def __init__(self, matrix):
+        super().__init__()
+        self.matrix = matrix
+
+    def build_low_rank_approximation(self, rows, cols, epsilon):
+        u, s, vh = np.linalg.svd(self.matrix[np.ix_(rows, cols)],
+                                 full_matrices=False)
+        r = max(int(np.sum(s > epsilon * s[0])), 1)
+        if r * (len(rows) + len(cols)) > len(rows) * len(cols):
+            return False
+        self.set_U(u[:, :r] * s[:r])
+        self.set_V(vh[:r])
+        return True
+
+
+class _DenseHook(T.VirtualDenseBlocksGenerator):
+    def __init__(self, matrix):
+        super().__init__()
+        self.matrix, self.calls = matrix, 0
+
+    def build_dense_blocks(self, rows_offsets, cols_offsets, blocks):
+        self.calls += 1
+        for rows, cols, block in zip(rows_offsets, cols_offsets, blocks):
+            block[:, :] = self.matrix[np.ix_(rows, cols)]
+
+
 def test_unported_hooks_raise():
+    # the custom low-rank and dense-block hooks raised NotImplementedError
+    # until they were ported (hmatrix/assembly.py); now a build with both
+    # meets epsilon and calls the dense-blocks hook once
+    points = _cloud(300)
+    A = _oracle(points)
+    builder = T.ClusterTreeBuilder()
+    builder.set_maximal_leaf_size(16)
+    hooked = builder.create_cluster_tree(points, 2)
     hb = T.HMatrixTreeBuilder(1e-3, 10.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        hb.set_low_rank_generator(object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        hb.set_dense_blocks_generator(object())
+    dense_hook = _DenseHook(A)
+    hb.set_low_rank_generator(_SVDHook(A))
+    hb.set_dense_blocks_generator(dense_hook)
+    hm_hooked = hb.build(T.KernelGenerator(pk(0.1), points, points,
+                                           device="cpu"), hooked, hooked)
+    assert dense_hook.calls == 1 and hm_hooked.plan.lowrank_buckets
+    assert not hm_hooked._lr_svd_form
+    x_hooked = np.random.RandomState(2).rand(300)
+    assert _rel(hm_hooked * x_hooked, A @ x_hooked) < 1e-3
+    hb = T.HMatrixTreeBuilder(1e-3, 10.0, device="cpu")
     points = _cloud(60)
     cluster = T.ClusterTreeBuilder().create_cluster_tree(points, 2)
     hm = hb.build(T.KernelGenerator(pk(0.1), points, points, device="cpu"),
@@ -192,7 +235,7 @@ def _port_sources():
         ROOT / "chip_smoke.py"]
 
 
-def test_port_never_imports_jax_or_the_reference():
+def test_port_never_imports_jax_or_the_reference(tmp_path):
     banned = ("jax", "jaxlib", "htool_python_tpu", "tools")
     for path in _port_sources():
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -223,7 +266,11 @@ def test_port_never_imports_jax_or_the_reference():
             "htool_python_torch.parallel.builders",
             "htool_python_torch.solvers.options",
             "htool_python_torch.solvers.krylov",
-            "htool_python_torch.solvers.ddm"} <= set(mods)
+            "htool_python_torch.solvers.ddm",
+            "htool_python_torch.parallel.sharded",
+            "htool_python_torch.parallel.multihost",
+            "htool_python_torch.parallel.dryrun",
+            "htool_python_torch.profiling.f64_variants"} <= set(mods)
     code = ("import sys, importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -231,3 +278,9 @@ def test_port_never_imports_jax_or_the_reference():
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
+    # nor do the dryrun's spawned workers, which check their own modules
+    from htool_python_torch.parallel import dryrun
+
+    rc, results = dryrun.launch(1, 1, cpu=True, timeout=120,
+                                rendezvous_dir=tmp_path)
+    assert rc == 0 and '"ok": true' in results[0][1], results
