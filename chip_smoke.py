@@ -11,8 +11,9 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
 Phases, in this order, one line each (`phase <name> {json}`):
   device:       card name and power limit, kernel build seconds, ptxas
-                reports (and `ptxas_xgemm`: registers and spills of each
-                instantiation of P3's 'xgemm' kernel), and the
+                reports (and `ptxas_xgemm` / `ptxas_f64`: registers and
+                spills of each instantiation of P3's 'xgemm' kernel and
+                of the f64 family's four), and the
                 reconstruction error of a complex64 SVD on
                 the card (torch.linalg.svd, and the port's double-precision
                 svd);
@@ -181,7 +182,20 @@ Phases, in this order, one line each (`phase <name> {json}`):
                 S-L (exp(10i r) / (0.1 + r)) assemblies (trans N / T / C),
                 k in {1, 8, 9, 64, 129}, each within 1e-12 of the plain
                 version, timed with CUDA events beside `product_bound`
-                (bytes, or flops at the FP64 tensor-core rate);
+                (bytes, or flops at the FP64 tensor-core rate); its line
+                also sums up `f64_promoted`;
+  f64_promoted: run right after `k1al_check` on the headline's float32
+                operator and after `k1_buckets` on the Helmholtz path's
+                complex64 one (so that nothing is assembled twice): hm *
+                x and hm @ X with numpy's float64 / complex128 x through
+                hmatrix_product_f64_from_f32 /
+                hmatrix_product_complex128_from_c64 (their launches
+                counted; sampled error <= 1e-3 / <= 2e-6, the result in
+                the wider dtype), then those kernels against their plain
+                version (which promotes the operator, as the reference
+                does), x float64 and complex128 on float32 data,
+                complex128 on complex64, trans N / T, k in {1, 8, 9, 64},
+                within 1e-12;
   sharded:      the sharded operator (parallel/sharded.py) on a world-1
                 NCCL group: the headline kernel on --n-sharded points, P =
                 4 partitions on this rank, float64 and float32; 'N', 'T'
@@ -228,7 +242,9 @@ TF32_FLOPS = 495e12  # H100 SXM TF32 tensor cores, dense
 F64_FLOPS = 67e12  # H100 SXM FP64 tensor cores (DFMA: 33.5 TFLOP/s)
 KERNEL_TOL = 1e-5  # f32 atomic summation order vs the plain version
 F64_TOL = 1e-12  # f64 atomic summation order vs the plain version
-F64_KS = (1, 8, 9, 64, 129)  # 9 and 64: wide path; 129: a third pass
+# 8: one column tile; 9: two; 64: a whole pass (32 complex); 129: a third
+F64_KS = (1, 8, 9, 64, 129)
+PROMOTED_KS = (1, 8, 9, 64)  # the float-storage instantiations' checks
 SHARDED_P = 4  # partitions of the sharded phase, on one rank
 SHARDED_F64_TOL = 1e-10  # the reference dryrun's bar (__graft_entry__.py)
 SHARDED_GMRES_TOL = 1e-8
@@ -291,8 +307,24 @@ def nvidia_smi_line() -> str:
 def ptxas_by_kernel(report, key):
     """{kernel: "registers ...; spills ..."} of the ptxas report's entry
     functions whose mangled name holds `key`, named by their template
-    arguments (xgemm_kernel<kind, gather, accum>)."""
+    arguments: integers (xgemm_kernel<kind, gather, accum>) and the f64
+    family's element types (<float, double, 4>; a repeated type is mangled
+    as a substitution, S..._, and named as the one before it)."""
     import re
+
+    types = {"d": "double", "f": "float", "7double2": "double2",
+             "6float2": "float2"}
+    token = r"7double2|6float2|S\w*?_|Li\d+E|d|f"
+
+    def template_args(mangled):
+        m = re.match(r"I((?:%s)+)E" % token, mangled.split(key, 1)[1])
+        names = []
+        for tok in re.findall(token, m.group(1) if m else ""):
+            if tok.startswith("Li"):
+                names.append(tok[2:-1])
+            else:
+                names.append(types.get(tok, names[-1] if names else tok))
+        return ",".join(names)
 
     out, name = {}, None
     for line in report.splitlines():
@@ -302,7 +334,7 @@ def ptxas_by_kernel(report, key):
             name = m.group(1) if key in m.group(1) else None
             continue
         if name and ("registers" in line or "spill" in line):
-            args = ",".join(re.findall(r"Li(\d+)E", name))
+            args = template_args(name)
             label = f"{key}<{args}>"
             out[label] = (out.get(label, "") + "; " + line.split(":")[-1]
                           .strip()).strip("; ")
@@ -369,33 +401,45 @@ def svd_check(torch, device):
     return out
 
 
-def product_bound(data, L, k):
-    """(bound ms, bound_by) of one product with k columns: the bytes it
-    must move (every stored entry once at its element size, 9 bytes of
-    offsets and mirror flag per block, x read once and y written once in
-    the data's dtype) over the HBM rate, against its flops (per stored
-    entry, column and use — a mirrored block is used twice — 2 for real
-    data, 8 for complex: 4 multiplies and 4 adds) over the f32 rate; at
-    k > 8, where K1 and K2 multiply on the tensor cores in 3xTF32 (K2 as
-    two real products over the 2k interleaved real columns: the same 8
-    flops per complex entry and column), three TF32 products for each f32
-    one at the TF32 rate.  float64 / complex128 data: the flops over the
-    FP64 tensor-core peak (F64_FLOPS, 67 TFLOP/s; the DFMA units that the
-    f64 kernels use give half of it), at every k."""
+def product_bound(data, L, k, x_dtype=None):
+    """(bound ms, bound_by) of one product with k columns of an x of
+    `x_dtype` (default: the data's dtype): the bytes it must move (every
+    stored entry once at its storage element size, 9 bytes of offsets and
+    mirror flag per block, x read once and y written once at the size of
+    the promoted dtype of data and x) over the HBM rate, against its flops
+    (per stored entry, column and use — a mirrored block is used twice —
+    2 for real data and x, 4 for real data and a complex x, whose 2k real
+    columns it runs, 8 for complex data: 4 multiplies and 4 adds) over the
+    rate of what the kernel multiplies on.  float32 / complex64 results:
+    the f32 rate, and at k > 8, where K1 and K2 multiply on the tensor
+    cores in 3xTF32 (K2 as two real products over the 2k interleaved real
+    columns: the same 8 flops per complex entry and column), three TF32
+    products for each f32 one at the TF32 rate.  float64 / complex128
+    results (the f64 family, on float64 / complex128 data or reading
+    float32 / complex64 data): the FP64 tensor-core peak (F64_FLOPS, 67
+    TFLOP/s), on which that family multiplies at every k."""
+    import torch
+
     nbytes = 0
-    flops = 0
-    itemsize = 4
+    entry_uses = 0
+    data_dtype = None
     for entry in data["dense"] + data["lr"]:
         mats, mirror = entry[:-3], entry[-1]
-        itemsize = mats[0].element_size()
+        data_dtype = mats[0].dtype
         per_block = sum(m[0].numel() for m in mats)
         uses = mirror.numel() + int(mirror.sum())
-        nbytes += sum(m.numel() * itemsize for m in mats) + 9 * mirror.numel()
-        flops += (8 if mats[0].is_complex() else 2) * k * per_block * uses
-    nbytes += 2 * int(L) * k * itemsize
+        nbytes += (sum(m.numel() * m.element_size() for m in mats)
+                   + 9 * mirror.numel())
+        entry_uses += per_block * uses
+    if data_dtype is None:
+        return 0.0, "bytes"
+    out = torch.promote_types(data_dtype, x_dtype or data_dtype)
+    per = 8 if data_dtype.is_complex else 4 if out.is_complex else 2
+    flops = per * k * entry_uses
+    nbytes += 2 * int(L) * k * torch.empty((), dtype=out).element_size()
     t_bytes = nbytes / HBM_BYTES_PER_S
-    if itemsize in (8, 16) and (itemsize == 16 or not mats[0].is_complex()):
-        t_ops = flops / F64_FLOPS  # float64 or complex128
+    if out.to_real() == torch.float64:
+        t_ops = flops / F64_FLOPS
     else:
         t_ops = 3 * flops / TF32_FLOPS if k > 8 else flops / F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -421,9 +465,11 @@ def build_operator(T, torch, points, symmetry, UPLO, device, dtype=None):
 
 
 def sampled_error(points, x, y, rng, n_rows=200):
+    """Relative error on n_rows sampled rows against the dense oracle
+    1/(0.1 + r) (a complex x: its real and imaginary parts)."""
     rows = rng.choice(points.shape[1], n_rows, replace=False)
     d = np.linalg.norm(points[:, rows, None] - points[:, None, :], axis=0)
-    y_exact = (1.0 / (0.1 + d)) @ x.astype(np.float64)
+    y_exact = (1.0 / (0.1 + d)) @ x.astype(np.result_type(x, np.float64))
     return float(np.linalg.norm(y[rows] - y_exact) / np.linalg.norm(y_exact))
 
 
@@ -570,7 +616,7 @@ def kernel_cases(torch, operators, phase, dtype, transes, ks=(1, 4, 8),
                         cfg.matvec_kernel_mode = "fused"
                     abs_err = float((y - y_plain).abs().max())
                     rel = abs_err / float(y_plain.abs().max())
-                    bound, bound_by = product_bound(data, L, k)
+                    bound, bound_by = product_bound(data, L, k, dtype)
                     case = dict(storage=symmetry + ("-" + UPLO if UPLO != "N"
                                                     else ""),
                                 N=n, trans=trans, k=k, mode=mode,
@@ -1763,7 +1809,64 @@ def ddm_hier(T, torch, n, device, counts):
     return cases
 
 
-def f64_check(T, torch, args, device, counts):
+def f64_promoted(torch, hm, points, seed, counts):
+    """The float-storage instantiations of the f64 family on an operator
+    that an earlier phase assembled (the headline's float32 one from
+    `main_path`, the Helmholtz path's complex64 one from `helmholtz`), so
+    that nothing is assembled twice; its results join `f64_check`.  First
+    the user entry points with numpy's default wider x (`hm * x` with a
+    float64 or complex128 x, `hm @ X` with a complex128 X; the launches
+    counted around them: the main path of hmatrix_product_f64_from_f32 /
+    hmatrix_product_complex128_from_c64), their dtype and their sampled
+    error against the dense oracle (<= 1e-3 on the headline, <= 2e-6 on
+    Helmholtz); then the kernel against its plain version (which promotes
+    the operator, as the reference does), trans N / T x k in PROMOTED_KS,
+    x float64 and complex128 on float32 data, complex128 on complex64,
+    within F64_TOL.  Returns the cases, each with its x dtype."""
+    from htool_python_torch.ops import cuda_matvec
+
+    n = hm.shape[0]
+    rng = np.random.RandomState(seed + 3)
+    helm = hm.dtype.is_complex
+    x1 = rng.rand(n) + (1j * rng.rand(n) if helm else 0.0)
+    X4 = np.asfortranarray(rng.rand(n, 4) + 1j * rng.rand(n, 4))
+    cuda_matvec.reset_launch_counts()
+    y1 = hm * x1
+    Y4 = hm @ X4
+    torch.cuda.synchronize()
+    counts.update(cuda_matvec.LAUNCH_COUNTS)
+    check(y1.dtype == x1.dtype and Y4.dtype == np.complex128
+          and np.isfinite(y1).all() and np.isfinite(Y4).all(),
+          f"promoted product dtype or values: {y1.dtype}, {Y4.dtype}")
+    if helm:
+        errs = [helmholtz_sampled_error(points, x1, y1, rng)] + [
+            helmholtz_sampled_error(points, X4[:, c], Y4[:, c],
+                                    np.random.RandomState(c))
+            for c in range(4)]
+        bar = HELM_ERR_MAX
+    else:
+        errs = [sampled_error(points, x1, y1, rng)] + [
+            sampled_error(points, X4[:, c], Y4[:, c],
+                          np.random.RandomState(c)) for c in range(4)]
+        bar = SAMPLED_ERR_MAX
+    check(max(errs) <= bar,
+          f"promoted sampled error {max(errs)} above {bar} ({hm.dtype})")
+    cases = []
+    for x_dtype in ((torch.complex128,) if helm
+                    else (torch.float64, torch.complex128)):
+        found = kernel_cases(torch, {("N", "N"): hm}, "f64_promoted", x_dtype,
+                             ("N", "T"), ks=PROMOTED_KS,
+                             reps=10 if helm else 20, plain_reps=2,
+                             modes=("fused",), tol=F64_TOL)
+        cases += [dict(c, data=str(hm.dtype).split(".")[1],
+                       x=str(x_dtype).split(".")[1]) for c in found]
+    emit("f64_promoted", data=str(hm.dtype).split(".")[1], N=n,
+         sampled_rel_error_k1=errs[0], sampled_rel_error_complex_max=max(
+             errs[1:]), launches={k: v for k, v in counts.items() if v})
+    return cases
+
+
+def f64_check(T, torch, args, device, counts, promoted=()):
     """float64 / complex128 products: the headline operator assembled in
     float64 through the user entry points (`hm * x`, `hm @ X`, with the
     kernels' launches counted around them: the main path of
@@ -1771,7 +1874,9 @@ def f64_check(T, torch, args, device, counts):
     complex128 (`hm * x`, `hm @ X` on complex x: the main path of
     hmatrix_product_complex128); then both kernels against their plain
     version, trans N / T (/ C) x storage x k in F64_KS, within F64_TOL.
-    Returns (f64 cases, c128 cases)."""
+    `promoted`: the cases of `f64_promoted` (the float-storage
+    instantiations, run where their operators were assembled), summed up
+    in this phase's line.  Returns (f64 cases, c128 cases)."""
     from htool_python_torch.models.geometry import (
         create_random_points_in_sphere, create_random_points_on_sphere)
     from htool_python_torch.models.kernels import hermitian_phase_kernel
@@ -1832,7 +1937,10 @@ def f64_check(T, torch, args, device, counts):
          complex128_N=args.n_k2, complex128_stored_bytes=int(stored_bytes(
              c_ops[("N", "N")]._product_data())),
          complex128_sampled_rel_error=err_c,
-         launches={k: v for k, v in counts.items() if v})
+         launches={k: v for k, v in counts.items() if v},
+         promoted_cases=len(promoted),
+         promoted_max_rel_err=max((c["max_rel_err"] for c in promoted),
+                                  default=None))
     return cases, c_cases
 
 
@@ -2513,9 +2621,11 @@ def main(argv=None) -> int:
         create_random_points_in_sphere, create_random_points_on_sphere)
     from htool_python_torch.models.kernels import hermitian_phase_kernel
     from htool_python_torch.ops import cuda_build
-    from htool_python_torch.ops.cuda_matvec import (ALIGNED_NAME, C128_NAME,
-                                                    F64_NAME, K2_NAME,
-                                                    KERNEL_NAME, launch_name)
+    from htool_python_torch.ops.cuda_matvec import (ALIGNED_NAME,
+                                                    C128_C64_NAME, C128_NAME,
+                                                    F64_F32_NAME, F64_NAME,
+                                                    K2_NAME, KERNEL_NAME,
+                                                    launch_name)
     from htool_python_torch.ops.matvec import stored_bytes
 
     device = torch.device("cuda")
@@ -2531,6 +2641,9 @@ def main(argv=None) -> int:
                 for lib in cuda_build.SOURCES},
          ptxas_xgemm=ptxas_by_kernel(
              cuda_build.ptxas_report("bucket_variants"), "xgemm_kernel"),
+         ptxas_f64=ptxas_by_kernel(
+             cuda_build.ptxas_report("hmatrix_product_f64"),
+             "hmatrix_product_f64_kernel"),
          svd_check=svd_check(torch, device))
 
     if args.k1_buckets_only:
@@ -2589,6 +2702,12 @@ def main(argv=None) -> int:
         ("N", "N"): hm,
         ("S", "L"): build_operator(T, torch, pts_main, "S", "L", device)[0]},
         "headline")
+    promoted_counts = {}
+    promoted = f64_promoted(torch, hm, pts_main, args.seed,
+                            promoted_counts)
+    check(promoted_counts.get(F64_F32_NAME, 0) > 0,
+          "the headline's float64 products never launched "
+          "hmatrix_product_f64_from_f32")
     del hm, data
     torch.cuda.empty_cache()
 
@@ -2613,6 +2732,14 @@ def main(argv=None) -> int:
     emit("recompression_paths", operator=f"H-L, N={args.n_k2}",
          card=smi, **recompression_times(T, torch, c_ops[("H", "L")]))
     k1_buckets(torch, {"helmholtz": helm}, stream_events_gbs)
+    promoted_helm_counts = {}
+    promoted += f64_promoted(
+        torch, helm, create_random_points_on_sphere(
+            args.n_helm, np.random.RandomState(1)), args.seed,
+        promoted_helm_counts)
+    check(promoted_helm_counts.get(C128_C64_NAME, 0) > 0,
+          "the Helmholtz path's complex128 products never launched "
+          "hmatrix_product_complex128_from_c64")
 
     del helm, c_ops
     torch.cuda.empty_cache()
@@ -2637,7 +2764,8 @@ def main(argv=None) -> int:
           "the ddm_hier solve never launched kernel K1")
 
     f64_counts = {}
-    f64_cases, c128_cases = f64_check(T, torch, args, device, f64_counts)
+    f64_cases, c128_cases = f64_check(T, torch, args, device, f64_counts,
+                                      promoted)
     check(f64_counts.get(F64_NAME, 0) > 0
           and f64_counts.get(C128_NAME, 0) > 0,
           "the f64 path never launched hmatrix_product_f64 or "
@@ -2771,6 +2899,32 @@ def main(argv=None) -> int:
             **({"launches_sharded": sharded_counts[f"float64/{F64_NAME}"],
                 "launches_sharded_gmres": sharded_counts.get(
                     f"gmres/{F64_NAME}", 0)} if kern == F64_NAME else {})})
+    for kern, data_dt, x_dt, launches, operator in (
+            (F64_F32_NAME, "float32", "float64",
+             promoted_counts[F64_F32_NAME],
+             f"headline in float32, N={args.n}, float64 x"),
+            (C128_C64_NAME, "complex64", "complex128",
+             promoted_helm_counts[C128_C64_NAME],
+             f"Helmholtz path in complex64, N={args.n_helm}, complex128 x")):
+        mine = [c for c in promoted if c["data"] == data_dt]
+
+        def p_case(k, mine=mine, x_dt=x_dt):
+            return next(c for c in mine if c["x"] == x_dt
+                        and c["trans"] == "N" and c["k"] == k)
+        kernels.append({
+            "name": kern, "route": "cuda", "source": f64_src,
+            "replaces": "none: XLA in htool_python_tpu/ops/matvec.py:100 "
+            "(the operator promoted at :111)",
+            "launches": launches,
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "max_rel_err": max(c["max_rel_err"] for c in mine),
+            "ms": p_case(1)["ms"], "plain_ms": p_case(1)["plain_ms"],
+            "bound_ms": p_case(1)["bound_ms"],
+            "bound_by": p_case(1)["bound_by"], "library_ms": None,
+            "bound_operations_rate": "FP64 tensor cores, 67 TFLOP/s",
+            "operator": operator,
+            **{f"{key}_k{k}": p_case(k)[key] for k in PROMOTED_KS[1:]
+               for key in ("ms", "plain_ms", "bound_ms")}})
     kernels[0]["launches_sharded_float32"] = sharded_counts[
         f"float32/{KERNEL_NAME}"]
     kernels[0]["launches_custom_hooks"] = hook_counts[KERNEL_NAME]

@@ -67,21 +67,27 @@ raises.  The data's dtype picks the kernel:
   * complex128 data: `hmatrix_product_complex128`, the same body on
     complex128, with a real or complex64 x promoted to complex128 and the
     conjugation flags of K2.
-    These two replace no TPU kernel (the reference computes f64 and
-    complex128 in XLA, htool_python_tpu/ops/matvec.py:100); they walk the
-    same work list at 8 / 16 bytes an element, in passes of PASS_COLS
-    columns, and have one launch structure: under 'per_bucket' or 'seq'
-    they raise NotImplementedError (ROADMAP item 1 adds no call sites to
-    that knob).  LAUNCH_COUNTS counts them under their own names.
-  * float32 or complex64 data with a float64 or complex128 x: the
-    reference promotes the operator; the port raises NotImplementedError
-    (ROADMAP section 3, fault 8) rather than compute in a narrower type.
+  * float32 data with a float64 x: `hmatrix_product_f64_from_f32`, the same
+    body reading float32 factors and computing in float64 (the factor
+    entries widened as they are read; widening is exact, so this is the
+    reference's product with the operator promoted, without a copy of it);
+    with a complex128 x the same through the real view.
+  * complex64 data with a complex128 (or float64) x:
+    `hmatrix_product_complex128_from_c64`, the same body reading complex64
+    factors and computing in complex128, with the conjugation flags.
+    These four replace no TPU kernel (the reference computes f64 and
+    complex128 in XLA, htool_python_tpu/ops/matvec.py:100, and promotes
+    the operator to the wider dtype of x at :111); they walk the same work
+    list at the data's element size, in passes of PASS_COLS columns (by the
+    dtype of x), and have one launch structure: under 'per_bucket' or
+    'seq' they raise NotImplementedError (ROADMAP item 1 adds no call sites
+    to that knob).  LAUNCH_COUNTS counts each under its own name.
 
 Tolerance: many blocks add into the same rows of y with f32 atomicAdd, in
 an order that changes from run to run, so either kernel agrees with the
 plain version to f32 summation round-off (checked at 1e-5 relative), not
-bit for bit; the float64 / complex128 kernels, with f64 atomics, to f64
-round-off (checked at 1e-12).  From 9 columns K1 and K2 multiply on the
+bit for bit; the float64 / complex128 kernels, whose tiles go into y as
+f64 bulk reductions or atomics, to f64 round-off (checked at 1e-12).  From 9 columns K1 and K2 multiply on the
 tensor cores in 3xTF32 (each f32 operand split into two TF32 parts; K2
 over the interleaved real columns), which keeps f32's round-off.
 
@@ -104,14 +110,15 @@ K2_NAME = "hmatrix_product_complex"
 ALIGNED_NAME = "hmatrix_product/aligned"  # K1-al
 F64_NAME = "hmatrix_product_f64"
 C128_NAME = "hmatrix_product_complex128"
+F64_F32_NAME = "hmatrix_product_f64_from_f32"  # float32 data, float64 x
+C128_C64_NAME = "hmatrix_product_complex128_from_c64"  # complex64 data
 F64_LIBRARY = "hmatrix_product_f64"  # csrc/hmatrix_product_f64.cu
 
 MODES = ("fused", "per_bucket", "seq")
 
-# columns of one launch by the data's dtype (an x row of kMaxCols = 128
+# columns of one launch by the dtype of x (an x row of kMaxCols = 128
 # floats in csrc/hmatrix_product.cu; kPass in csrc/hmatrix_product_f64.cu,
-# where w of an item's rows x one pass fills 32 KB / 16 KB of shared
-# memory); a wider x runs in passes of this many columns
+# an x row of 64 doubles); a wider x runs in passes of this many columns
 PASS_COLS = {torch.float32: 128, torch.complex64: 64, torch.float64: 64,
              torch.complex128: 32}
 
@@ -128,10 +135,20 @@ LAUNCH_COUNTS = {launch_name(kern, mode): 0 for kern in (KERNEL_NAME, K2_NAME)
 LAUNCH_COUNTS[ALIGNED_NAME] = 0
 LAUNCH_COUNTS[F64_NAME] = 0
 LAUNCH_COUNTS[C128_NAME] = 0
+LAUNCH_COUNTS[F64_F32_NAME] = 0
+LAUNCH_COUNTS[C128_C64_NAME] = 0
 
 # the data dtype each kernel takes
 _KERNEL_OF = {torch.float32: KERNEL_NAME, torch.complex64: K2_NAME,
               torch.float64: F64_NAME, torch.complex128: C128_NAME}
+# the kernel of float32 / complex64 data with a float64 / complex128 x
+_PROMOTED_OF = {torch.float32: F64_F32_NAME, torch.complex64: C128_C64_NAME}
+# the float64 / complex128 family: its C entry point, and whether it takes
+# the conjugation flags
+_F64_ENTRY = {F64_NAME: ("hm_f64_launch", False),
+              F64_F32_NAME: ("hm_f64_f32data_launch", False),
+              C128_NAME: ("hm_c128_launch", True),
+              C128_C64_NAME: ("hm_c128_c64data_launch", True)}
 
 
 def reset_launch_counts() -> None:
@@ -188,9 +205,11 @@ def _f64_library():
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     # items, n_items, x, lx, y, ly, k, swapped, symmetric[, conj_fwd,
     # conj_tr], stream
-    lib.hm_f64_launch.argtypes = [p, ll, p, ll, p, ll, i, i, i, p]
-    lib.hm_c128_launch.argtypes = [p, ll, p, ll, p, ll, i, i, i, i, i, p]
-    lib.hm_f64_launch.restype = lib.hm_c128_launch.restype = i
+    for entry, conj in _F64_ENTRY.values():
+        fn = getattr(lib, entry)
+        fn.argtypes = [p, ll, p, ll, p, ll, i, i, i, *([i, i] if conj else []),
+                       p]
+        fn.restype = i
     lib.hm_f64_error_string.argtypes = [i]
     lib.hm_f64_error_string.restype = ctypes.c_char_p
     _LIBS[F64_LIBRARY] = lib
@@ -358,19 +377,18 @@ class BucketTable:
 
 
 def _launch_f64(name, table, x, y, trans, sym):
-    """Kernel `name` (hmatrix_product_f64 or hmatrix_product_complex128)
+    """Kernel `name` (one of the float64 / complex128 family, `_F64_ENTRY`)
     over the work list of `table` largest first, x (L, k) into the zeroed y
-    (ny, k), both of the kernel's dtype: one launch per pass of PASS_COLS
+    (ny, k), both float64 or complex128: one launch per pass of PASS_COLS
     columns."""
     lib = _f64_library()
     L, k = x.shape
     io = (x.data_ptr(), L, y.data_ptr(), y.shape[0], k, int(trans != "N"),
           int(sym != "N"))
-    if name == C128_NAME:
-        fn = lib.hm_c128_launch
+    entry, conj = _F64_ENTRY[name]
+    fn = getattr(lib, entry)
+    if conj:
         io += tuple(int(c) for c in conj_flags(trans, sym))
-    else:
-        fn = lib.hm_f64_launch
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         rc = fn(table.items.data_ptr(), len(table.work.items), *io, stream)
@@ -385,9 +403,9 @@ def _launch(name, mode, table, x, y, trans, sym):
     `table`, x (L, k) into the zeroed y (ny, k); x and y hold the kernel's
     dtype.  K1 / K2: 'fused' (K1-al on aligned real data) and 'seq' launch
     once per pass of PASS_COLS columns, over the list largest first and in
-    bucket order; 'per_bucket' once per bucket and pass.  The float64 and
-    complex128 kernels have the 'fused' structure only."""
-    if name in (F64_NAME, C128_NAME):  # 'fused' only (`dispatch`)
+    bucket order; 'per_bucket' once per bucket and pass.  The float64 /
+    complex128 family has the 'fused' structure only."""
+    if name in _F64_ENTRY:  # 'fused' only (`dispatch`)
         return _launch_f64(name, table, x, y, trans, sym)
     lib = _library()
     aligned = name == KERNEL_NAME and mode == "fused" and table.aligned
@@ -440,22 +458,19 @@ def real_view_product(real_product, x_pad, ny_pad: int):
 def dispatch(data_dtype, x_dtype, mode: str = "fused"):
     """(kernel, dtype of x and y, real view) of a CUDA product of
     `data_dtype` data with an x of `x_dtype` in launch structure `mode`:
-    the data's dtype picks the kernel, x is promoted to the data's width,
-    and a real operator takes a complex x through its real view
-    (`real_view_product`).  Raises NotImplementedError where x is wider
-    than the data (the reference promotes the operator; ROADMAP section 3,
-    fault 8) and for the float64 / complex128 kernels in another structure
-    than 'fused'; TypeError for another dtype."""
+    x and y take the promoted dtype of data and x, as in the reference; the
+    data's dtype picks the kernel, or, where x is wider (float64 /
+    complex128 x on float32 / complex64 data), the kernel that reads the
+    data as stored and computes in the wider type; a real operator takes a
+    complex x through its real view (`real_view_product`).  Raises
+    NotImplementedError for the float64 / complex128 family in another
+    structure than 'fused'; TypeError for another dtype."""
     _check_dtype(data_dtype, "the operator")
     _check_dtype(x_dtype, "x_pad")
     dtype = torch.promote_types(data_dtype, x_dtype)
-    if dtype.to_real() != data_dtype.to_real():
-        raise NotImplementedError(
-            f"{data_dtype} data with a {x_dtype} x: the reference promotes "
-            "the operator, the port does not compute it in a narrower type "
-            "(ROADMAP section 3, fault 8)")
-    name = _KERNEL_OF[data_dtype]
-    if name in (F64_NAME, C128_NAME) and mode != "fused":
+    name = (_KERNEL_OF[data_dtype] if dtype.to_real() == data_dtype.to_real()
+            else _PROMOTED_OF[data_dtype])
+    if name in _F64_ENTRY and mode != "fused":
         raise NotImplementedError(
             f"{name} has one launch structure ('fused'), not {mode!r}: "
             "ROADMAP item 1 adds no call sites to matvec_kernel_mode")

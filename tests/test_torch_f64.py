@@ -4,11 +4,13 @@ hmatrix_product_complex128; csrc/hmatrix_product_f64.cu) on the CPU.
 The kernels run on the card only (tests/test_torch_gpu.py, chip_smoke.py
 `f64_check`); here:
 
-* the wrapper's dispatch: the data's dtype picks the kernel, x is promoted
-  to the data's width, a real operator takes a complex x through its real
-  view, a wider x than the data raises NotImplementedError (ROADMAP
-  section 3, fault 8), and so do the f64 kernels under the 'per_bucket' /
-  'seq' launch structures; other dtypes raise TypeError;
+* the wrapper's dispatch: x and y take the promoted dtype of data and x;
+  the data's dtype picks the kernel, or, for a float64 / complex128 x on
+  float32 / complex64 data, the instantiation that reads the data as
+  stored and computes in the wider type; a real operator takes a complex x
+  through its real view; the f64 family raises NotImplementedError under
+  the 'per_bucket' / 'seq' launch structures; other dtypes raise
+  TypeError;
 * the work list of f64 and complex128 data covers every stored entry once
   (64-row items for f64, 32 for complex128) and its item records name each
   slice at 8 / 16 bytes an element;
@@ -17,7 +19,11 @@ The kernels run on the card only (tests/test_torch_gpu.py, chip_smoke.py
   reference's `apply_hmatrix_padded` on the reference's own arrays, within
   1e-12, trans N / T (/ C) x storage x k in {1, 9, 65}; the arrays carry
   over bit for bit (`interop.from_reference_data`);
-* the real view at float64 (`real_view_product`).
+* the real view at float64 (`real_view_product`);
+* the promoted products: the reference's `apply_hmatrix_padded` on its
+  own float32 / complex64 arrays with a float64 / complex128 x (it
+  promotes the operator) against the port's plain version and its plain
+  walk of the work list on the same arrays, within 1e-12.
 
 The reference assembles through its host-generator path (no XLA compile).
 """
@@ -54,24 +60,21 @@ F32, C64, F64, C128 = (torch.float32, torch.complex64, torch.float64,
     (C128, F64, ("hmatrix_product_complex128", C128, False)),
     (C128, C64, ("hmatrix_product_complex128", C128, False)),
     (C128, C128, ("hmatrix_product_complex128", C128, False)),
+    (F32, F64, ("hmatrix_product_f64_from_f32", F64, False)),
+    (F32, C128, ("hmatrix_product_f64_from_f32", C128, True)),
+    (C64, F64, ("hmatrix_product_complex128_from_c64", C128, False)),
+    (C64, C128, ("hmatrix_product_complex128_from_c64", C128, False)),
 ])
 def test_dispatch(data, x, want):
     assert cuda_matvec.dispatch(data, x) == want
     assert want[0] in cuda_matvec.LAUNCH_COUNTS
 
 
-@pytest.mark.parametrize("data,x", [(F32, F64), (F32, C128), (C64, F64),
-                                    (C64, C128)])
-def test_wider_x_than_the_data_raises(data, x):
-    with pytest.raises(NotImplementedError, match="fault 8"):
-        cuda_matvec.dispatch(data, x)
-
-
 @pytest.mark.parametrize("mode", ["per_bucket", "seq"])
 def test_f64_kernels_have_one_launch_structure(mode):
-    for dtype in (F64, C128):
+    for dtype, x in ((F64, F64), (C128, C128), (F32, F64), (C64, C128)):
         with pytest.raises(NotImplementedError, match="one launch structure"):
-            cuda_matvec.dispatch(dtype, dtype, mode)
+            cuda_matvec.dispatch(dtype, x, mode)
     assert cuda_matvec.dispatch(F32, F32, mode)[0] == "hmatrix_product"
     assert cuda_matvec.PASS_COLS[F64] == 64
     assert cuda_matvec.PASS_COLS[C128] == 32
@@ -86,7 +89,7 @@ def test_other_dtypes_raise(dtype):
         cuda_matvec.dispatch(F64, dtype)
 
 
-def _real_reference(symmetry, n=240):
+def _real_reference(symmetry, n=240, dtype=np.float64):
     points = np.random.RandomState(6).rand(3, n)
     d = np.linalg.norm(points[:, :, None] - points[:, None, :], axis=0)
     b = H.ClusterTreeBuilder()
@@ -94,7 +97,7 @@ def _real_reference(symmetry, n=240):
     cluster = b.create_cluster_tree(points, 2)
     hb = H.HMatrixTreeBuilder(1e-6, 10.0, symmetry,
                               "L" if symmetry == "S" else "N")
-    hb.set_dtype(np.float64)
+    hb.set_dtype(dtype)
     return hb.build(ReferenceHostGenerator(1.0 / (0.1 + d)), cluster,
                     cluster)
 
@@ -224,3 +227,56 @@ def test_real_view_at_float64(operators):
     assert y.dtype == C128
     assert torch.linalg.norm(y - y_plain) <= 1e-14 * torch.linalg.norm(
         y_plain)
+
+
+_PROMOTED = [("f32", "N"), ("f32", "S"), ("c64", "N"), ("c64", "H"),
+             ("c64", "S")]
+
+
+@pytest.fixture(scope="module")
+def narrow_operators():
+    """The reference's float32 / complex64 operators of `operators`."""
+    out = {}
+    for kind, sym in _PROMOTED:
+        if kind == "f32":
+            out[kind, sym] = _real_reference(sym, dtype=np.float32)
+        else:
+            out[kind, sym] = reference_complex_operator(
+                sym, "L" if sym != "N" else "N", np.complex64, eps=1e-6,
+                n=200)[0]
+    return out
+
+
+@pytest.mark.parametrize("k", [1, 9])
+@pytest.mark.parametrize("kind,symmetry", _PROMOTED)
+def test_promoted_products_match_reference(narrow_operators, kind, symmetry,
+                                           k):
+    """float32 / complex64 data with a float64 / complex128 x: the
+    reference promotes the operator (its ops/matvec.py:111); the port's
+    plain version and the plain walk of the kernels' work list, on the
+    same arrays as stored, give its product within 1e-12, in the wider
+    dtype, which the kernels' float-storage instantiations compute."""
+    hm = narrow_operators[kind, symmetry]
+    data = _port_data(hm)
+    assert data["dense"][0][0].dtype == (F32 if kind == "f32" else C64)
+    L, n = hm._pad_len, hm.shape[0]
+    if kind == "f32":
+        x = np.zeros((L, k))
+        x[:n] = np.random.RandomState(k).rand(n, k)
+    else:
+        x = random_pad(L, n, k, seed=k, dtype=np.complex128)
+    want = F64 if kind == "f32" else C128
+    assert cuda_matvec.dispatch(data["dense"][0][0].dtype,
+                                torch.as_tensor(x).dtype)[1] == want
+    wl = port_mv.work_list(data)
+    for trans in ("N", "T") if kind == "f32" else ("N", "T", "C"):
+        y_ref = np.asarray(ref_mv.apply_hmatrix_padded(
+            hm._data, jnp.asarray(x), L, trans, symmetry))
+        assert y_ref.dtype == np.dtype(str(want).split(".")[1])
+        x_t = torch.as_tensor(x)
+        y = port_mv.apply_hmatrix_padded(data, x_t, L, trans, symmetry)
+        y_walk = port_mv.apply_work_list(data, wl, x_t, L, trans, symmetry)
+        for out in (y, y_walk):
+            assert out.dtype == want
+            assert (np.linalg.norm(out.numpy() - y_ref)
+                    <= 1e-12 * np.linalg.norm(y_ref))

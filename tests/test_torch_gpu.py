@@ -3,7 +3,8 @@ plain version on the card, in each launch structure, K1-al on the aligned
 low-rank layout, the HODLR factorization through K1 and K1-al, one- and
 two-level (GenEO) DDM solves on the golden data, the profiling path's
 kernels P1-P4, the float64 / complex128 kernels
-(csrc/hmatrix_product_f64.cu; within 1e-12, f64 atomics) and the sharded
+(csrc/hmatrix_product_f64.cu, also on float32 / complex64 data with a
+float64 / complex128 x; within 1e-12, f64 atomics) and the sharded
 operator on a world-1 NCCL group (skips without a card).
 
 Run on a machine with a CUDA device:
@@ -73,10 +74,15 @@ def test_k1_matches_plain_version(cuda_device):
         y_host = hm.matvec(x_user.cpu().numpy())
         assert (np.linalg.norm(y_dev.cpu().numpy() - y_host)
                 <= 1e-5 * np.linalg.norm(y_host))
-    # a float64 x on float32 data: the port does not promote the operator
-    with pytest.raises(NotImplementedError, match="fault 8"):
-        cuda_matvec.apply_hmatrix_cuda(hm._data, x.double(), L, "N",
+    # a float64 x on float32 data: the operator promoted, as in the
+    # reference, through hmatrix_product_f64_from_f32 (f64 atomics)
+    before = cuda_matvec.LAUNCH_COUNTS[cuda_matvec.F64_F32_NAME]
+    y = cuda_matvec.apply_hmatrix_cuda(hm._data, x.double(), L, "N",
                                        symmetry)
+    assert cuda_matvec.LAUNCH_COUNTS[cuda_matvec.F64_F32_NAME] == before + 1
+    y_plain = apply_hmatrix_padded(hm._data, x.double(), L, "N", symmetry)
+    assert y.dtype == y_plain.dtype == torch.float64
+    assert (y - y_plain).abs().max() <= 1e-12 * y_plain.abs().max()
     # a y one row short of the furthest block segment is refused
     table = hm._bucket_table()
     with pytest.raises(ValueError, match="past x"):
@@ -139,9 +145,15 @@ def test_k2_matches_plain_version(cuda_device):
         y_plain = apply_hmatrix_padded(hm._data, xr, L, "N", symmetry)
         assert y.dtype == torch.complex64
         assert (y - y_plain).abs().max() <= 1e-5 * y_plain.abs().max()
-    with pytest.raises(NotImplementedError, match="fault 8"):
-        cuda_matvec.apply_hmatrix_cuda(hm._data, x.to(torch.complex128), L,
-                                       "N", symmetry, table)
+    # a complex128 x on complex64 data: the operator promoted, through
+    # hmatrix_product_complex128_from_c64 (f64 atomics)
+    before = cuda_matvec.LAUNCH_COUNTS[cuda_matvec.C128_C64_NAME]
+    x = x.to(torch.complex128)
+    y = cuda_matvec.apply_hmatrix_cuda(hm._data, x, L, "N", symmetry, table)
+    assert cuda_matvec.LAUNCH_COUNTS[cuda_matvec.C128_C64_NAME] == before + 1
+    y_plain = apply_hmatrix_padded(hm._data, x, L, "N", symmetry)
+    assert y.dtype == y_plain.dtype == torch.complex128
+    assert (y - y_plain).abs().max() <= 1e-12 * y_plain.abs().max()
 
 
 def _complex_x(device, L, n, k, seed):
@@ -892,40 +904,47 @@ def _wide_buckets(dtype, device, symmetry, seed=0, L=4096):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
-def test_f64_kernels_match_plain_version(cuda_device, dtype):
-    """hmatrix_product_f64 / hmatrix_product_complex128 against the plain
-    version within 1e-12: every storage and trans, k from one column to
-    more than one pass (64 real / 32 complex columns a pass), narrow and
-    wide passes; a real x promoted, a complex x on real data through the
+@pytest.mark.parametrize("dtype,x_dtype", [
+    (torch.float64, torch.float64), (torch.complex128, torch.complex128),
+    (torch.float32, torch.float64), (torch.complex64, torch.complex128)])
+def test_f64_kernels_match_plain_version(cuda_device, dtype, x_dtype):
+    """The float64 / complex128 family against the plain version within
+    1e-12: hmatrix_product_f64 / hmatrix_product_complex128 on float64 /
+    complex128 data, and the instantiations that read float32 / complex64
+    data with a float64 / complex128 x; every storage and trans, k from
+    one column to more than one pass (64 real / 32 complex columns a
+    pass); a narrower x promoted, a complex x on real data through the
     real view; one launch per pass counted."""
-    name = cuda_matvec.dispatch(dtype, dtype)[0]
+    name = cuda_matvec.dispatch(dtype, x_dtype)[0]
     storages = ("N", "S", "H") if dtype.is_complex else ("N", "S")
     for symmetry in storages:
         data, L = _wide_buckets(dtype, cuda_device, symmetry)
         table = cuda_matvec.BucketTable(data, cuda_device)
         assert len(table.work.items) > 2 * 132 * 8
         for trans in ("N", "T", "C") if dtype.is_complex else ("N", "T"):
-            for k in (1, 2, 3, 8, 9, 33, 65, 129):
+            for k in (1, 2, 3, 8, 9, 33, 64, 65, 129):
                 g = torch.Generator(cuda_device).manual_seed(k)
-                x = torch.randn((L, k), dtype=dtype, device=cuda_device,
+                x = torch.randn((L, k), dtype=x_dtype, device=cuda_device,
                                 generator=g)
                 before = cuda_matvec.LAUNCH_COUNTS[name]
                 y = cuda_matvec.apply_hmatrix_cuda(data, x, L, trans,
                                                    symmetry, table)
                 torch.cuda.synchronize()
-                passes = -(-k // cuda_matvec.PASS_COLS[dtype])
+                passes = -(-k // cuda_matvec.PASS_COLS[x_dtype])
                 assert cuda_matvec.LAUNCH_COUNTS[name] == before + passes
                 y_plain = apply_hmatrix_padded(data, x, L, trans, symmetry)
+                assert y.dtype == y_plain.dtype == x_dtype
                 err = (y - y_plain).abs().max() / y_plain.abs().max()
                 assert err <= 1e-12, (symmetry, trans, k, float(err))
-        other = (torch.float32 if not dtype.is_complex
-                 else torch.complex64)
-        x = torch.randn((L, 3), dtype=other, device=cuda_device)
-        y = cuda_matvec.apply_hmatrix_cuda(data, x, L, "N", symmetry, table)
-        y_plain = apply_hmatrix_padded(data, x, L, "N", symmetry)
-        assert y.dtype == y_plain.dtype
-        assert (y - y_plain).abs().max() <= 1e-12 * y_plain.abs().max()
+        if dtype == x_dtype:
+            other = (torch.float32 if not dtype.is_complex
+                     else torch.complex64)
+            x = torch.randn((L, 3), dtype=other, device=cuda_device)
+            y = cuda_matvec.apply_hmatrix_cuda(data, x, L, "N", symmetry,
+                                               table)
+            y_plain = apply_hmatrix_padded(data, x, L, "N", symmetry)
+            assert y.dtype == y_plain.dtype
+            assert (y - y_plain).abs().max() <= 1e-12 * y_plain.abs().max()
     if not dtype.is_complex:  # the real view at float64
         x = torch.randn((L, 3), dtype=torch.complex128, device=cuda_device)
         y = cuda_matvec.apply_hmatrix_cuda(data, x, L, "N", "S", table)
@@ -936,7 +955,8 @@ def test_f64_kernels_match_plain_version(cuda_device, dtype):
     cfg.matvec_kernel_mode = "seq"
     try:
         with pytest.raises(NotImplementedError, match="one launch structure"):
-            cuda_matvec.apply_hmatrix_cuda(data, x, L, "N", "N", table)
+            cuda_matvec.apply_hmatrix_cuda(data, x.to(x_dtype), L, "N", "N",
+                                           table)
     finally:
         cfg.matvec_kernel_mode = "fused"
 
