@@ -17,12 +17,25 @@ Phases, in this order, one line each (`phase <name> {json}`):
                 reconstruction error of a complex64 SVD on
                 the card (torch.linalg.svd, and the port's double-precision
                 svd);
+  native_cluster: the headline tree (N points in the unit ball, seed 0)
+                and the Helmholtz tree (N = --n-helm on the sphere, seed
+                1), leaf 128, by the native C++ builder and by the numpy
+                path: every node array and the permutation equal (centers
+                and radii to 1e-12), both host times;
   main_path:    the headline pipeline — a random cloud in the unit ball,
                 kernel 1/(0.1+r), eps 1e-3, eta 10, leaf 128, f32, storage
                 'N' — through ClusterTreeBuilder -> HMatrixTreeBuilder.build
                 -> HMatrix.matvec / @ in user numbering (k = 1 and 8), with
                 kernel launches counted around the products and the sampled
                 error against the dense oracle (<= 1e-3);
+  surface:      every name of the reference's `__all__` lists (read from
+                its source, not imported) imported from the port on this
+                machine, without matplotlib; get_distributed_information()
+                and lowrank_leaves() on the headline operator;
+  example:      one line per example of htool_python_torch/examples/: its
+                run() on the card (float32, so products run K1), its
+                numbers, seconds and launches; a failed assertion fails
+                the script, and use_hmatrix must launch K1;
   profiling:    the kernel-profiling path (python -m
                 htool_python_torch.profiling) at the reference's sizes:
                 P1 over its 7 buffer cases (384 MiB each), P2 over its 11
@@ -159,6 +172,11 @@ Phases, in this order, one line each (`phase <name> {json}`):
                 (torch.profiler), peak memory, and the residual (<
                 eps) and error (< 10 eps); the `hlu` line adds the device
                 profile of one LU factorization;
+  surface_compact: after `k1_buckets` on the hlu operator, with the
+                aligned layout on: K1-al's products before and after
+                compact_for_products() (equal bit for bit where two calls
+                before it agree bit for bit, else within 1e-5: f32
+                atomics), the device memory it freed, to_dense raising;
   ddm_hier:     the reference's pinned hierarchical-tier solve
                 (tests/test_hier_local_solver.py:21-62): N = 16384 on the
                 sphere (seed 5), second_kind_kernel(0.5, 10), eps 1e-4,
@@ -2248,6 +2266,228 @@ def custom_hooks(T, torch, n, seed, device, counts):
           "the custom-hooks product never launched K1")
 
 
+TREE_INT_FIELDS = ("offsets", "sizes", "depths", "parents", "children_start",
+                   "children_count", "partition")
+
+
+def native_cluster(T, torch, n, n_helm, seed):
+    """The headline and Helmholtz trees (leaf 128, PCARegular) by the
+    native C++ builder and by the numpy path (a subclass of the built-in
+    policy is a user policy, which takes it): every node array and the
+    permutation equal (centers and radii to 1e-12: another summation
+    order), and both host times."""
+    from htool_python_torch.models.geometry import (
+        create_random_points_in_sphere, create_random_points_on_sphere)
+
+    class NumpyPath(T.PCARegular):
+        """The built-in policy as a user policy: the numpy path."""
+
+    # load the library before the clock runs (it is built in `device`)
+    T.ClusterTreeBuilder().create_cluster_tree(
+        np.random.RandomState(0).rand(3, 64), 2)
+    clouds = (("headline", create_random_points_in_sphere(
+                  n, np.random.RandomState(seed))),
+              ("helmholtz", create_random_points_on_sphere(
+                  n_helm, np.random.RandomState(1))))
+    for label, points in clouds:
+        trees, seconds = [], []
+        for strategy in (T.PCARegular(), NumpyPath()):
+            builder = T.ClusterTreeBuilder()
+            builder.set_maximal_leaf_size(128)
+            builder.set_partitioning_strategy(strategy)
+            t0 = time.perf_counter()
+            trees.append(builder.create_cluster_tree(points, 2).tree)
+            seconds.append(time.perf_counter() - t0)
+        nat, ref = trees
+        check(nat.nb_nodes == ref.nb_nodes
+              and all(np.array_equal(getattr(nat, f), getattr(ref, f))
+                      for f in TREE_INT_FIELDS),
+              f"native_cluster {label}: the node arrays differ")
+        perm_equal = bool(np.array_equal(nat.permutation, ref.permutation))
+        leaves = np.flatnonzero(nat.children_count == 0)
+        check(perm_equal or all(
+            set(nat.permutation[o:o + s]) == set(ref.permutation[o:o + s])
+            for o, s in zip(nat.offsets[leaves], nat.sizes[leaves])),
+            f"native_cluster {label}: a leaf holds other points")
+        center_err = float(np.abs(nat.centers - ref.centers).max())
+        radius_err = float(np.abs(nat.radii - ref.radii).max())
+        check(center_err <= 1e-12 and radius_err <= 1e-12,
+              f"native_cluster {label}: centers / radii differ by "
+              f"{center_err} / {radius_err}")
+        emit("native_cluster", operator=label, N=points.shape[1], leaf=128,
+             nodes=int(nat.nb_nodes), native_s=seconds[0],
+             numpy_s=seconds[1], permutation_equal=perm_equal,
+             max_center_diff=center_err, max_radius_diff=radius_err)
+
+
+def _reference_all(path):
+    """The names of a reference `__init__.py`'s `__all__`, read from its
+    source without importing it (the reference needs JAX, which this
+    machine does not have): the literal list, or where `__all__` is built
+    from dir(), every name the file imports or assigns."""
+    import ast
+
+    tree = ast.parse(path.read_text())
+    names = []
+    for node in tree.body:
+        if isinstance(node, ast.Assign):
+            for target in node.targets:
+                if isinstance(target, ast.Name) and target.id == "__all__":
+                    if isinstance(node.value, (ast.List, ast.Tuple)):
+                        return [e.value for e in node.value.elts]
+                elif isinstance(target, ast.Name):
+                    names.append(target.id)
+        elif isinstance(node, ast.ImportFrom):
+            names += [a.asname or a.name for a in node.names]
+    return [n for n in names if not n.startswith("_")]
+
+
+# reference names the port does not carry (tests/test_torch_surface.py
+# NOT_PORTED; ROADMAP §1 "Not ported")
+SURFACE_NOT_PORTED = {"use_x64"}
+
+
+def surface(T, torch, hm, n):
+    """The reference's public names imported from the port on this
+    machine (which has no matplotlib), and HMatrix's
+    get_distributed_information() / lowrank_leaves() on the headline
+    operator."""
+    import importlib
+    import importlib.util
+    from pathlib import Path
+
+    t0 = time.perf_counter()
+    ref_root = Path(__file__).resolve().parent / "htool_python_tpu"
+    imported = {}
+    for sub in ("", "clustering", "hmatrix", "models", "parallel",
+                "solvers", "utils", "ops"):
+        names = _reference_all(ref_root / sub / "__init__.py")
+        module = importlib.import_module(
+            "htool_python_torch" + (f".{sub}" if sub else ""))
+        missing = [name for name in names if name not in SURFACE_NOT_PORTED
+                   and not hasattr(module, name)]
+        check(not missing, f"surface: {module.__name__} lacks {missing}")
+        imported[sub or "root"] = len(names)
+    check("matplotlib" not in sys.modules,
+          "surface: importing the package loaded matplotlib")
+
+    info = hm.get_distributed_information()
+    local = hm.get_local_information()
+    check(info["Number_of_rows"] == str(n) and info["Number_of_partitions"]
+          == "1" and all(info[k] == local[k] for k in local),
+          f"surface: get_distributed_information {info} against {local}")
+    leaves = hm.lowrank_leaves()
+    check(len(leaves) == len(hm.plan.lowrank_buckets)
+          and sum(len(r) for *_, r in leaves) == hm.plan.nb_lowrank_blocks()
+          and all(U.shape == (b.nb, b.pt, V.shape[1])
+                  and V.shape[::2] == (b.nb, b.ps)
+                  for U, V, b, _ in leaves),
+          "surface: lowrank_leaves shapes")
+    emit("surface", seconds=time.perf_counter() - t0,
+         names_checked=imported,
+         matplotlib_installed=importlib.util.find_spec("matplotlib")
+         is not None, distributed_information=info,
+         lowrank_leaves=len(leaves),
+         lowrank_leaf_bytes=int(sum(U.nbytes + V.nbytes
+                                    for U, V, *_ in leaves)))
+
+
+def surface_compact(torch, hm, counts):
+    """compact_for_products() on an operator whose products read the
+    aligned layout (K1-al): the assembly arrays are freed, K1-al's
+    products afterwards equal those before (bit for bit where two calls
+    before it agree bit for bit; K1-al sums with f32 atomics), and
+    densification raises."""
+    from htool_python_torch.config import get_config
+    from htool_python_torch.ops import cuda_matvec
+
+    t0 = time.perf_counter()
+    cfg = get_config()
+    cfg.matvec_aligned_layout = True
+    try:
+        gen = torch.Generator(device=hm.device).manual_seed(5)
+        X = torch.rand((hm.shape[1], 8), generator=gen, device=hm.device)
+        cuda_matvec.reset_launch_counts()
+        before = [hm.matvec(X) for _ in range(2)]
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated()
+        hm.compact_for_products()
+        torch.cuda.synchronize()
+        mem_after = torch.cuda.memory_allocated()
+        after = hm.matvec(X)
+        torch.cuda.synchronize()
+        counts.update(cuda_matvec.LAUNCH_COUNTS)
+    finally:
+        cfg.matvec_aligned_layout = False
+    try:
+        hm.to_dense()
+        raised = False
+    except RuntimeError as e:
+        raised = "compact_for_products" in str(e)
+    repeatable = bool(torch.equal(before[0], before[1]))
+    bitwise = bool(torch.equal(after, before[0]))
+    err = float((after - before[0]).abs().max() / before[0].abs().max())
+    emit("surface_compact", seconds=time.perf_counter() - t0,
+         operator="hlu, N=" + str(hm.shape[0]),
+         launches={k: v for k, v in counts.items() if v},
+         freed_GB=(mem_before - mem_after) / 1e9,
+         repeatable_before=repeatable, bitwise_equal=bitwise,
+         max_rel_diff=err, to_dense_raises=raised)
+    check(counts.get(cuda_matvec.ALIGNED_NAME, 0) > 0
+          and set(k for k, v in counts.items() if v)
+          == {cuda_matvec.ALIGNED_NAME},
+          "surface_compact: the products did not run K1-al alone")
+    check(hm._data is None and mem_after < mem_before,
+          "surface_compact: the assembly arrays were not freed")
+    check(bitwise or (not repeatable and err <= KERNEL_TOL),
+          f"surface_compact: products after compaction differ by {err}")
+    check(raised, "surface_compact: to_dense did not raise")
+
+
+def _printable(value):
+    """An example's numbers for its line: long arrays by their shape."""
+    if isinstance(value, dict):
+        return {k: _printable(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return [_printable(v) for v in value]
+    if isinstance(value, np.ndarray):
+        return value.tolist() if value.size <= 8 else {"shape": value.shape}
+    if isinstance(value, np.generic):
+        return value.item()
+    return value
+
+
+def examples(torch, counts):
+    """Every port example's run() on the card (float32, K1): its numbers,
+    seconds and kernel launches on one line each; an example whose own
+    assertion fails fails the script."""
+    import contextlib
+    import importlib
+    import io
+
+    from htool_python_torch.examples import EXAMPLES
+    from htool_python_torch.ops import cuda_matvec
+
+    for name in EXAMPLES:
+        module = importlib.import_module(f"htool_python_torch.examples.{name}")
+        cuda_matvec.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):  # its own prints
+            numbers = module.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: v for k, v in cuda_matvec.LAUNCH_COUNTS.items() if v}
+        for k, v in launches.items():
+            counts[k] = counts.get(k, 0) + v
+        emit("example", name=name, seconds=seconds, launches=launches,
+             **_printable(numbers))
+        if name == "use_hmatrix":
+            check(launches.get(cuda_matvec.KERNEL_NAME, 0) > 0,
+                  "use_hmatrix never launched kernel K1")
+    check(counts.get(cuda_matvec.KERNEL_NAME, 0) > 0,
+          "the examples never launched kernel K1")
+
+
 def profiling(torch, device, counts, smi):
     """The profiling path (python -m htool_python_torch.profiling) at the
     reference's sizes, with P1-P4's launches counted around it; returns its
@@ -2648,10 +2888,14 @@ def main(argv=None) -> int:
 
     if args.k1_buckets_only:
         return buckets_only(T, torch, args, device)
+    native_cluster(T, torch, args.n, args.n_helm, args.seed)
     counts = {}
     hm = main_path(T, torch, args.n, args.seed, device, counts)
     check(counts.get(KERNEL_NAME, 0) > 0,
           "the main path never launched kernel K1")
+    surface(T, torch, hm, args.n)
+    example_counts = {}
+    examples(torch, example_counts)
 
     prof_counts = {}
     prof = profiling(torch, device, prof_counts, smi)
@@ -2756,6 +3000,8 @@ def main(argv=None) -> int:
     al_cases += k1al_cases(torch, {("N", "N"): hm_lu, ("S", "L"): hm_lu_s},
                            "hlu")
     k1_buckets(torch, {"hlu": hm_lu}, stream_events_gbs)
+    compact_counts = {}
+    surface_compact(torch, hm_lu, compact_counts)
     del hm_lu, hm_lu_s
     torch.cuda.empty_cache()
     hier_counts = {}
@@ -2865,7 +3111,8 @@ def main(argv=None) -> int:
         **{f"k1_ms_k{k}": al_case("hlu", k)["k1_ms"] for k in (1, 8, 128)},
         **{f"headline_{key}_k{k}": al_case("headline", k)[key]
            for k in (1, 8, 128) for key in ("ms", "k1_ms")},
-        "hlu_by_k": by_k("ms", "hlu"), "k1_hlu_by_k": by_k("k1_ms", "hlu")})
+        "hlu_by_k": by_k("ms", "hlu"), "k1_hlu_by_k": by_k("k1_ms", "hlu"),
+        "launches_surface_compact": compact_counts[ALIGNED_NAME]})
     SUMMARY.update({"k1_hlu_ms_k128": al_case("hlu", 128)["k1_ms"],
                     **{f"k1al_hlu_ms_k{k}": al_case("hlu", k)["ms"]
                        for k in (1, 8, 128)}})
@@ -2928,6 +3175,7 @@ def main(argv=None) -> int:
     kernels[0]["launches_sharded_float32"] = sharded_counts[
         f"float32/{KERNEL_NAME}"]
     kernels[0]["launches_custom_hooks"] = hook_counts[KERNEL_NAME]
+    kernels[0]["launches_examples"] = example_counts[KERNEL_NAME]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

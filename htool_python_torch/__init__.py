@@ -16,12 +16,16 @@ distributed operators (parallel/; sharded over processes on
 torch.distributed in parallel/sharded.py) and the one- and two-level
 (GenEO) Schwarz DDM solver with its dense and hierarchical local solvers
 and GMRES / CG (solvers/) run their products through the same kernels.
-Entry points run on CUDA unless the caller passes device='cpu'.  Nothing
-here imports JAX or the reference package.
+Entry points run on CUDA unless the caller passes device='cpu'.  Cluster
+trees of the built-in policies come from a C++ builder compiled at first
+use (csrc/cluster_builder.cpp, native/).  Nothing here imports JAX or the
+reference package; the reference's examples run on the port from
+htool_python_torch/examples/.
 
-The names mirror the reference's public surface for the parts ported so
-far; `Complex*` aliases are the same classes (dtype is a property of the
-data).
+The names mirror the reference's public surface (every subpackage
+re-exports the reference's `__all__`; tests/test_torch_surface.py holds
+them); `Complex*` aliases are the same classes (dtype is a property of
+the data).
 """
 
 from .config import Config, get_config, set_precision
@@ -77,6 +81,7 @@ from .solvers.ddm import DDMSolver, DDMSolverBuilder, \
 
 # Misc
 from .utils.logger import logger, test_logger
+from .utils.plotting import plot
 
 ComplexVirtualGenerator = VirtualGenerator
 ComplexVirtualLowRankGenerator = VirtualLowRankGenerator

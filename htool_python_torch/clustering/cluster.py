@@ -1,11 +1,13 @@
 """Cluster tree: geometric hierarchical clustering of point clouds.
 
-Copy of htool_python_tpu/clustering/cluster.py (numpy path only): the
-port's equivalent of the reference's `Cluster<T>` / `ClusterTreeBuilder<T>`
-(reference bindings: src/htool/clustering/cluster_node.hpp:13-27 and
-src/htool/clustering/cluster_tree_builder.hpp:13-68).  Built once on host
-in numpy; stored as flat arrays (structure-of-arrays) so downstream block
-planning and device kernels can consume it without pointer chasing.
+Copy of htool_python_tpu/clustering/cluster.py: the port's equivalent of
+the reference's `Cluster<T>` / `ClusterTreeBuilder<T>` (reference
+bindings: src/htool/clustering/cluster_node.hpp:13-27 and
+src/htool/clustering/cluster_tree_builder.hpp:13-68).  Built once on the
+host — by the native C++ builder (native/) for the four built-in
+policies, in numpy for user policies —, stored as flat arrays
+(structure-of-arrays) so downstream block planning and device kernels can
+consume it without pointer chasing.
 
 Conventions (pinned by reference tests, tests/test_distributed_operator.py:105-129):
   permutation[internal_position] = user_index
@@ -17,7 +19,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from .partitioning import PCARegular, VirtualPartitioning
+from .partitioning import (BoundingBoxGeometric, BoundingBoxRegular,
+                           PCAGeometric, PCARegular, VirtualPartitioning)
 
 
 class ClusterTree:
@@ -227,12 +230,35 @@ class ClusterTreeBuilder:
         """Core breadth-first build.  `top_parts` = None (no partition) or
         the list of P user-index arrays forming the partition level.
 
-        This is the reference's numpy path, the behaviour-defining one; the
-        reference's ctypes C++ builder is not ported yet (ROADMAP)."""
+        The four built-in policies take the native C++ builder
+        (csrc/cluster_builder.cpp, the reference's production path, the
+        same algorithm), which raises if it cannot be built; user
+        VirtualPartitioning subclasses, whose splits are Python callbacks,
+        take the numpy path (`_build_numpy`), the plain version the native
+        tree is tested against."""
         if top_parts is not None and len(top_parts) == 1:
             # single-partition: the partition node is the root itself
             top_parts = None
+        kinds = _native_strategy_kinds(self._strategy)
+        if kinds is None:
+            return self._build_numpy(coords, radii, weights, nb_children,
+                                     top_parts)
+        from ..native import build_cluster_tree_native
 
+        (offsets, sizes, depths, parents, cstart, ccount, centers, radius_arr,
+         partition, permutation) = build_cluster_tree_native(
+            coords, radii, weights, nb_children, self._maximal_leaf_size,
+            self._minimal_depth, *kinds, top_parts)
+        tree = ClusterTree(
+            points=coords, offsets=offsets, sizes=sizes, depths=depths,
+            parents=parents, children_start=cstart, children_count=ccount,
+            centers=centers, radii=radius_arr, partition=partition,
+            permutation=permutation,
+            maximal_leaf_size=self._maximal_leaf_size)
+        return Cluster(tree, 0)
+
+    def _build_numpy(self, coords, radii, weights, nb_children, top_parts):
+        """The numpy build (the reference's behaviour-defining path)."""
         offsets, sizes, depths, parents = [], [], [], []
         children_start, children_count = [], []
         centers, radius_arr = [], []
@@ -306,3 +332,16 @@ class ClusterTreeBuilder:
             maximal_leaf_size=mls,
         )
         return Cluster(tree, 0)
+
+
+# (direction_kind, split_kind) of the native builder: PCA / bounding box,
+# regular / geometric split
+_NATIVE_KINDS = {PCARegular: (0, 0), PCAGeometric: (0, 1),
+                 BoundingBoxRegular: (1, 0), BoundingBoxGeometric: (1, 1)}
+
+
+def _native_strategy_kinds(strategy):
+    """The native builder's kinds for the four built-in policies, or None
+    for any other VirtualPartitioning (a subclass of a built-in one
+    included: its methods may differ)."""
+    return _NATIVE_KINDS.get(type(strategy))

@@ -45,6 +45,10 @@ class VirtualGenerator:
     def build_submatrix(self, J, K, mat) -> None:  # pragma: no cover - abstract
         raise NotImplementedError
 
+    # dtype the assembly should use; complex subclasses may override
+    def dtype(self, default):
+        return default
+
 
 class FunctionGenerator(VirtualGenerator):
     """Vectorized host generator from f(J, K) -> (len(J), len(K)) ndarray."""

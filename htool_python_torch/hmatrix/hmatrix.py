@@ -28,7 +28,12 @@ def reduce_hmatrix_information(hmatrices) -> dict:
     """The reference's reduced info dict over H-matrices held in one process
     (the block rows of a distributed operator): sums for sizes, blocks and
     storage, min / max / mean over ranks."""
-    a = np.stack([h._information_tuple() for h in hmatrices])
+    return _reduced_info_dict(np.stack([h._information_tuple()
+                                        for h in hmatrices]))
+
+
+def _reduced_info_dict(a: np.ndarray) -> dict:
+    """The info dict of (pieces, 10) `_information_tuple` rows."""
     rows = int(a[:, 0].sum())
     cols = int(a[0, 1])  # every piece spans the full source width
     stored = int(a[:, 4].sum())
@@ -70,6 +75,7 @@ class HMatrix:
         # first product of each layout
         self._table = None
         self._aligned = None  # the aligned low-rank layout, built at 1st use
+        self._compacted = False  # True once compact_for_products freed _data
         self._factorization = None  # set by lu/cholesky_factorization
         # every low-rank leaf an exact SVD pair (U = Q W diag(s) with
         # orthonormal Q W, V with orthonormal rows): recompression may then
@@ -143,7 +149,11 @@ class HMatrix:
         config.matvec_aligned_layout on, a float32 operator with low-rank
         buckets gives their aligned layout (align_lowrank, lane ALIGN_LANE,
         built once and kept), which the wrapper sends to kernel K1-al;
-        otherwise the canonical storage."""
+        otherwise the canonical storage.  After compact_for_products only
+        the aligned layout is left, and products read it whatever the
+        switch says."""
+        if self._data is None:
+            return self._aligned
         if (get_config().matvec_aligned_layout
                 and self.dtype == torch.float32 and self._data["lr"]):
             if self._aligned is None:
@@ -151,10 +161,31 @@ class HMatrix:
             return self._aligned
         return self._data
 
+    def compact_for_products(self) -> None:
+        """Free the assembly layout where products read another one (the
+        aligned low-rank layout of K1-al), so only the product layout stays
+        in device memory.  Densification, recompression, the dense
+        factorization and `lowrank_leaves` need the assembly layout and
+        raise afterwards; call this only when the remaining work is
+        products and solves.  No-op otherwise.  (The reference also splits
+        complex64 operators into re / im planes here, for its TPU kernel;
+        K2 reads complex64 as it is stored.)"""
+        if self._data is not None and self._product_data() is not self._data:
+            if self._table is not None and self._table[0] is self._data:
+                self._table = None  # it holds the freed layout's tensors
+            self._data = None
+            self._compacted = True
+
     def _assembly_data(self):
         """The bucket data as assembled (the canonical storage), which
         densification and recompression read; products may read the
-        aligned layout instead (`_product_data`)."""
+        aligned layout instead (`_product_data`).  Raises once
+        compact_for_products has freed it."""
+        if self._compacted:
+            raise RuntimeError(
+                "assembly arrays were freed by compact_for_products(); "
+                "densify/recompression/factorization need them — rebuild "
+                "the operator or skip compaction")
         return self._data
 
     def _bucket_table(self) -> BucketTable:
@@ -347,8 +378,9 @@ class HMatrix:
         # tensors are never modified in place and may be shared, but the
         # CONTAINERS are copied so a sibling's bucket replacement cannot
         # leak into this one
-        new._data = {"dense": list(self._data["dense"]),
-                     "lr": list(self._data["lr"])}
+        if self._data is not None:
+            new._data = {"dense": list(self._data["dense"]),
+                         "lr": list(self._data["lr"])}
         new._lr_ranks = [r.copy() for r in self._lr_ranks]
         if self._aligned is not None:
             new._aligned = {"dense": list(self._aligned["dense"]),
@@ -423,6 +455,41 @@ class HMatrix:
             int(ranks.max()) if len(ranks) else 0,
             int(ranks.sum()) if len(ranks) else 0, len(ranks),
         ], dtype=np.int64)
+
+    def get_distributed_information(self, comm=None) -> dict:
+        """Stats reduced over the distributed pieces of the operator (the
+        reference's MPI-reduced `get_distributed_information(comm)`).  In a
+        torch.distributed group of more than one process each process
+        passes its own block row, as each MPI rank does, and the stats are
+        all-gathered over the group; otherwise they are this H-matrix's.
+        A process holding every block row reduces over them with
+        `DistributedOperator.get_distributed_information`.  `comm` is
+        accepted for the reference's signature and not used."""
+        from ..parallel.multihost import process_count
+        from ..parallel.sharded import all_gather
+
+        tup = self._information_tuple()
+        world = process_count()
+        if world > 1:
+            mine = torch.as_tensor(tup[None], device=self.device)
+            rows = all_gather(torch.empty((world, len(tup)), dtype=mine.dtype,
+                                          device=self.device), mine)
+            info = _reduced_info_dict(rows.cpu().numpy())
+        else:
+            info = _reduced_info_dict(tup[None])
+        info["Number_of_partitions"] = str(
+            len(self.plan.target_root.tree.partition))
+        return info
+
+    def lowrank_leaves(self):
+        """The low-rank leaves in the user layout, on the host: a list of
+        (U (nb, pt, r), V (nb, r, ps), bucket, ranks), one per low-rank
+        bucket (the stored rank-major Ut, transposed).  They are copies:
+        changing them leaves the operator as it is."""
+        return [(np.array(Ut.transpose(1, 2).cpu()), np.array(V.cpu()), b, r)
+                for (Ut, V, *_), b, r in zip(self._assembly_data()["lr"],
+                                             self.plan.lowrank_buckets,
+                                             self._lr_ranks)]
 
     def get_local_information(self) -> dict:
         nt, ns = self.shape

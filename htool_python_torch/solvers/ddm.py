@@ -231,10 +231,13 @@ class DDMSolver:
                                                 device=r2d.device)])
             X = r_ext[idx_pad].to(torch.promote_types(
                 r2d.dtype, solver_data[0].dtype))  # (P, mp, k)
+            # a float64 residual on float32 factors computes in float64,
+            # as the reference's promotion does (a no-op when they agree)
             if kind == "inv":
-                Z = torch.bmm(solver_data[0], X)
+                Z = torch.bmm(solver_data[0].to(X.dtype), X)
             else:
-                Z = torch.linalg.lu_solve(*solver_data, X)
+                Z = torch.linalg.lu_solve(solver_data[0].to(X.dtype),
+                                          solver_data[1], X)
             Z = Z * self._weights[method][:, :, None]
             out.index_add_(0, idx_pad.reshape(-1), Z.reshape(-1, k).to(dtype))
         for hs in self._hier:
