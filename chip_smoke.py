@@ -71,6 +71,22 @@ Phases, in this order, one line each (`phase <name> {json}`):
                 the host ms of one
                 call again with K1's bucket table built on every call
                 instead of once per operator;
+  k1_sweeps:    K1's attribution sweeps (the reference's
+                tools/profile_matvec9.py, 9b, 9d, 9e, 9f, 9g; python -m
+                htool_python_torch.profiling.k1_sweeps) on the headline
+                operator at k = 1, 8 and 128: the four synthetic families
+                (block shape, width, power-of-two width, offset structure;
+                384 MiB a case, drawn with numpy as the scripts draw them),
+                the operator with its stored widths and padded to powers
+                of two (the whole product and its three largest low-rank
+                buckets alone) and 9g's 2 x 2 of real and random data and
+                offsets on its largest low-rank bucket; one line per
+                family, each case with ms (chain), device ms, GB/s, the
+                share of P1's best read rate (its events rate of this run)
+                and the bound; K1 within 1e-5 of its plain version at k = 1
+                and 128 and each re-padded product within 1e-5 of the
+                stored one; then a summary line (wall seconds, worst
+                errors, K1's launches);
   k1_check:     kernel K1 against its plain version on the card, for
                 trans N/T x storage N (the headline buckets), S-L, S-U
                 (smaller assemblies) x k in {1, 2, 4, 8, 9, 32, 64, 128}
@@ -254,10 +270,6 @@ import time
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
-F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
-TF32_FLOPS = 495e12  # H100 SXM TF32 tensor cores, dense
-F64_FLOPS = 67e12  # H100 SXM FP64 tensor cores (DFMA: 33.5 TFLOP/s)
 KERNEL_TOL = 1e-5  # f32 atomic summation order vs the plain version
 F64_TOL = 1e-12  # f64 atomic summation order vs the plain version
 # 8: one column tile; 9: two; 64: a whole pass (32 complex); 129: a third
@@ -419,51 +431,6 @@ def svd_check(torch, device):
     return out
 
 
-def product_bound(data, L, k, x_dtype=None):
-    """(bound ms, bound_by) of one product with k columns of an x of
-    `x_dtype` (default: the data's dtype): the bytes it must move (every
-    stored entry once at its storage element size, 9 bytes of offsets and
-    mirror flag per block, x read once and y written once at the size of
-    the promoted dtype of data and x) over the HBM rate, against its flops
-    (per stored entry, column and use — a mirrored block is used twice —
-    2 for real data and x, 4 for real data and a complex x, whose 2k real
-    columns it runs, 8 for complex data: 4 multiplies and 4 adds) over the
-    rate of what the kernel multiplies on.  float32 / complex64 results:
-    the f32 rate, and at k > 8, where K1 and K2 multiply on the tensor
-    cores in 3xTF32 (K2 as two real products over the 2k interleaved real
-    columns: the same 8 flops per complex entry and column), three TF32
-    products for each f32 one at the TF32 rate.  float64 / complex128
-    results (the f64 family, on float64 / complex128 data or reading
-    float32 / complex64 data): the FP64 tensor-core peak (F64_FLOPS, 67
-    TFLOP/s), on which that family multiplies at every k."""
-    import torch
-
-    nbytes = 0
-    entry_uses = 0
-    data_dtype = None
-    for entry in data["dense"] + data["lr"]:
-        mats, mirror = entry[:-3], entry[-1]
-        data_dtype = mats[0].dtype
-        per_block = sum(m[0].numel() for m in mats)
-        uses = mirror.numel() + int(mirror.sum())
-        nbytes += (sum(m.numel() * m.element_size() for m in mats)
-                   + 9 * mirror.numel())
-        entry_uses += per_block * uses
-    if data_dtype is None:
-        return 0.0, "bytes"
-    out = torch.promote_types(data_dtype, x_dtype or data_dtype)
-    per = 8 if data_dtype.is_complex else 4 if out.is_complex else 2
-    flops = per * k * entry_uses
-    nbytes += 2 * int(L) * k * torch.empty((), dtype=out).element_size()
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    if out.to_real() == torch.float64:
-        t_ops = flops / F64_FLOPS
-    else:
-        t_ops = 3 * flops / TF32_FLOPS if k > 8 else flops / F32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
 def build_operator(T, torch, points, symmetry, UPLO, device, dtype=None):
     from htool_python_torch.models.kernels import inverse_distance_kernel
 
@@ -604,6 +571,7 @@ def kernel_cases(torch, operators, phase, dtype, transes, ks=(1, 4, 8),
     from htool_python_torch.config import get_config
     from htool_python_torch.ops.cuda_matvec import MODES, apply_hmatrix_cuda
     from htool_python_torch.ops.matvec import apply_hmatrix_padded
+    from htool_python_torch.profiling.bounds import product_bound
     from htool_python_torch.profiling.timing import cuda_ms
 
     cfg = get_config()
@@ -696,6 +664,7 @@ def helmholtz(T, torch, n, seed, device, counts, copy_gbs):
     from htool_python_torch.models.kernels import hermitian_phase_kernel
     from htool_python_torch.ops import cuda_matvec
     from htool_python_torch.ops.matvec import stored_bytes
+    from htool_python_torch.profiling.bounds import product_bound
 
     points = create_random_points_on_sphere(n, np.random.RandomState(1))
     torch.cuda.reset_peak_memory_stats()
@@ -1156,6 +1125,7 @@ def ddm_geneo(T, torch, n, device, counts):
     from htool_python_torch.models.kernels import inverse_distance_kernel
     from htool_python_torch.ops import cuda_matvec
     from htool_python_torch.ops.cuda_matvec import apply_hmatrix_cuda
+    from htool_python_torch.profiling.bounds import product_bound
     from htool_python_torch.solvers import coarse
 
     P = 4
@@ -1419,6 +1389,7 @@ def k1al_cases(torch, operators, label, ks=K1_KS, reps=20):
     from htool_python_torch.ops.matvec import (ALIGN_LANE, align_lowrank,
                                                apply_hmatrix_padded,
                                                stored_bytes)
+    from htool_python_torch.profiling.bounds import product_bound
     from htool_python_torch.profiling.timing import cuda_ms
 
     results = []
@@ -1473,25 +1444,6 @@ def k1al_cases(torch, operators, label, ks=K1_KS, reps=20):
     return results
 
 
-def p1_best_gbs(torch, device, reps=20):
-    """P1's best read rate over its buffer cases (stream.STREAM_CASES, 384
-    MiB each), by CUDA events: the read rate the card reaches in this run."""
-    from htool_python_torch.profiling import stream
-    from htool_python_torch.profiling.timing import cuda_ms
-
-    g = torch.Generator(device).manual_seed(5)
-    x = torch.rand((1, stream.OUT_COLS), device=device, generator=g)
-    best = 0.0
-    for step_mb, n_buf in stream.STREAM_CASES:
-        rows, _ = stream.stream_rows(step_mb, n_buf)
-        bufs = [torch.rand((rows, stream.WIDTH), device=device, generator=g)
-                for _ in range(n_buf)]
-        ms = cuda_ms(lambda: stream.stream_probe(bufs, x, step_mb), reps=reps)
-        best = max(best, sum(b.numel() * 4 for b in bufs) / ms / 1e6)
-        del bufs
-    return best
-
-
 def device_ms(torch, fn, reps=20, cover_cycles=10_000_000):
     """Device ms per call of fn: CUDA events around `reps` calls queued
     behind a spin kernel (torch.cuda._sleep, ~5 ms), so that the card runs
@@ -1528,6 +1480,7 @@ def k1_buckets(torch, operators, stream_gbs, ks=(1, 8, 128), reps=20):
     from htool_python_torch.ops.cuda_matvec import (BucketTable,
                                                     apply_hmatrix_cuda)
     from htool_python_torch.ops.matvec import stored_bytes
+    from htool_python_torch.profiling.bounds import product_bound
     from htool_python_torch.profiling.timing import cuda_ms
 
     out = {}
@@ -1586,6 +1539,42 @@ def k1_buckets(torch, operators, stream_gbs, ks=(1, 8, 128), reps=20):
                                  sum_device_ms=total, rows=rows)
             del x
     return out
+
+
+def k1_sweeps(torch, hm, stream_gbs, counts):
+    """K1's attribution sweeps (python -m
+    htool_python_torch.profiling.k1_sweeps) on the headline operator `hm`,
+    with K1's launches counted around them: one `k1_sweeps` line per
+    family, then a summary line.  Fails where K1 is more than 1e-5 from its
+    plain version (k = 1 and 128) or a re-padded product more than 1e-5
+    from the stored one."""
+    from htool_python_torch.ops import cuda_matvec
+    from htool_python_torch.profiling.k1_sweeps import (case_entries,
+                                                        failures, run_sweeps)
+
+    cuda_matvec.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = run_sweeps(hm.device, operator=hm, p1_gbs=stream_gbs,
+                        on_family=lambda name, part: emit(
+                            "k1_sweeps", family=name, **part))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts.update(cuda_matvec.LAUNCH_COUNTS)
+    bad = failures(result)
+    rows = [(name, entry[f"k{k}"]) for name, entry in case_entries(result)
+            for k in result["check_ks"]]
+    worst = max(rows, key=lambda r: r[1]["max_rel_err"])
+    emit("k1_sweeps_summary", wall_s=wall, seconds=result["seconds"],
+         ks=result["ks"], check_ks=result["check_ks"], cases=len(rows)
+         // len(result["check_ks"]), p1_best_GBs=stream_gbs,
+         max_rel_err=worst[1]["max_rel_err"], worst_case=worst[0],
+         max_repad_err=max(r["repad_err"] for _, r in rows
+                           if "repad_err" in r),
+         launches=counts[cuda_matvec.KERNEL_NAME], failed=bad)
+    check(not bad, f"k1_sweeps: {bad} above {KERNEL_TOL}")
+    check(counts[cuda_matvec.KERNEL_NAME] > 0,
+          "the K1 sweeps never launched kernel K1")
+    return result
 
 
 def second_kind_operator(T, torch, n, rng, diagonal, eps, symmetry, UPLO,
@@ -2587,6 +2576,8 @@ def profiling_checks(torch, device):
     from htool_python_torch.profiling import bucket_variants as bv
     from htool_python_torch.profiling import stream
     from htool_python_torch.profiling.__main__ import take_probe
+    from htool_python_torch.profiling.bounds import (HBM_BYTES_PER_S,
+                                                     TF32_FLOPS)
 
     g = torch.Generator(device).manual_seed(5)
     cases = {"P1": {}, "P2": {}, "P3": {}, "P4": {}}
@@ -2789,7 +2780,11 @@ def profiling_entries(counts, checks, result):
 def buckets_only(T, torch, args, device) -> int:
     """--k1-buckets-only: the k1_buckets phase alone on the operators of
     --bucket-operators, through nothing of the package but the product's
-    wrapper and the builders, so that an older checkout runs it too."""
+    wrapper and the builders, so that an older checkout runs it too (one
+    that predates htool_python_torch/profiling/bounds.py, which holds
+    `product_bound` and `p1_best_gbs`, with that file copied into it)."""
+    from htool_python_torch.profiling.bounds import p1_best_gbs
+
     wanted = args.bucket_operators.split(",")
     unknown = set(wanted) - {"headline", "hlu", "helmholtz"}
     check(not unknown, f"unknown --bucket-operators {sorted(unknown)}")
@@ -2811,7 +2806,7 @@ def buckets_only(T, torch, args, device) -> int:
                              "N", "N", device)[0]
         T.recompression(helm)
         ops["helmholtz"] = helm
-    k1_buckets(torch, ops, p1_best_gbs(torch, device))
+    k1_buckets(torch, ops, p1_best_gbs(device))
     return 0
 
 
@@ -2867,6 +2862,8 @@ def main(argv=None) -> int:
                                                     K2_NAME, KERNEL_NAME,
                                                     launch_name)
     from htool_python_torch.ops.matvec import stored_bytes
+    from htool_python_torch.profiling.bounds import (p1_best_gbs,
+                                                     product_bound)
 
     device = torch.device("cuda")
     smi = nvidia_smi_line()
@@ -2919,7 +2916,7 @@ def main(argv=None) -> int:
                              torch, hm, k, args.seed, prepared=False))
     SUMMARY.update({f"product_ms_k{k}": v["product_ms"]
                     for k, v in timing.items()})
-    stream_events_gbs = p1_best_gbs(torch, device)
+    stream_events_gbs = p1_best_gbs(device)
     k1_buckets(torch, {"headline": hm}, stream_events_gbs)
     emit("product_time", card=smi, stored_bytes=int(nbytes), copy_GBs=copy_gbs,
          stream_GBs=stream_gbs,
@@ -2929,6 +2926,8 @@ def main(argv=None) -> int:
                                 / copy_gbs,
                                 fraction_of_stream_rate=v["effective_GBs"]
                                 / stream_gbs) for k, v in timing.items()})
+    sweep_counts = {}
+    k1_sweeps(torch, hm, stream_events_gbs, sweep_counts)
 
     pts_sym = create_random_points_in_sphere(
         args.n_sym, np.random.RandomState(args.seed + 1))
@@ -3176,6 +3175,7 @@ def main(argv=None) -> int:
         f"float32/{KERNEL_NAME}"]
     kernels[0]["launches_custom_hooks"] = hook_counts[KERNEL_NAME]
     kernels[0]["launches_examples"] = example_counts[KERNEL_NAME]
+    kernels[0]["launches_k1_sweeps"] = sweep_counts[KERNEL_NAME]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

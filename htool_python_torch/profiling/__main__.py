@@ -40,9 +40,9 @@ import torch
 from ..config import resolve_device
 from . import bucket_variants as bv
 from . import stream
+from .bounds import HBM_BYTES_PER_S
 from .timing import chain_time, cuda_ms
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 CHECK_TOL = 1e-5  # --cpu: f32 against float64
 
 # --cpu sizes: every case valid, a few MiB each

@@ -2,7 +2,7 @@
 plain version on the card, in each launch structure, K1-al on the aligned
 low-rank layout, the HODLR factorization through K1 and K1-al, one- and
 two-level (GenEO) DDM solves on the golden data, the profiling path's
-kernels P1-P4, the float64 / complex128 kernels
+kernels P1-P4 and K1's attribution sweeps, the float64 / complex128 kernels
 (csrc/hmatrix_product_f64.cu, also on float32 / complex64 data with a
 float64 / complex128 x; within 1e-12, f64 atomics) and the sharded
 operator on a world-1 NCCL group (skips without a card).
@@ -754,6 +754,31 @@ def test_stream_probes_match_plain_version(cuda_device):
         got = stream.shape_stream(A, x, G)
         want = stream.shape_stream_plain(A, x, G)
         assert float((got - want).abs()) <= 1e-5 * float(want), (shape, G)
+
+
+@pytest.mark.gpu
+def test_k1_sweeps_match_plain_version(cuda_device):
+    """K1's attribution sweeps (profiling/k1_sweeps.py) at their --cpu
+    size on the card: every case of the six families timed, K1 against
+    its plain version at k = 1, 8 and 128, and the pow2-padded products
+    against the stored one, each within 1e-5."""
+    from htool_python_torch.profiling import k1_sweeps
+
+    before = cuda_matvec.LAUNCH_COUNTS[cuda_matvec.KERNEL_NAME]
+    result = k1_sweeps.run_sweeps(cuda_device, tiny=True, ks=(1, 8, 128),
+                                  check_ks=(1, 8, 128))
+    assert cuda_matvec.LAUNCH_COUNTS[cuda_matvec.KERNEL_NAME] > before
+    assert k1_sweeps.failures(result) == []
+    entries = dict(k1_sweeps.case_entries(result))
+    assert len(entries) == 33
+    for entry in entries.values():
+        for k in (1, 8, 128):
+            row = entry[f"k{k}"]
+            assert row["max_rel_err"] <= k1_sweeps.CHECK_TOL
+            assert min(row["ms"], row["device_ms"], row["bound_ms"]) > 0
+    for rule in k1_sweeps.RULES:
+        assert all(result["repad"][rule]["whole"][f"k{k}"]["repad_err"]
+                   <= k1_sweeps.CHECK_TOL for k in (1, 8, 128))
 
 
 @pytest.mark.gpu
