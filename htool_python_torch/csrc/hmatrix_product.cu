@@ -1369,6 +1369,156 @@ extern "C" int hm_k2_launch_per_bucket(const void* items_by_bucket,
                              conj_fwd, conj_tr, static_cast<cudaStream_t>(stream));
 }
 
+// The user-numbering permutations around a product (ops/cuda_matvec.py
+// `apply_hmatrix_user_cuda`).  They replace no TPU kernel: the reference
+// keeps x[perm_in], the padding and y[:nout][inv_out] inside its one jitted
+// program (htool_python_tpu/ops/matvec.py `apply_hmatrix_user`), which XLA
+// fuses.  Their plain versions are `permute_in` / `permute_out` in
+// htool_python_torch/ops/matvec.py.
+//
+//  * permute-in: x_pad[i] = x[perm[i]] for i < n, zero rows up to pad_len,
+//    and the product's y (ny rows) zeroed, all in one launch;
+//  * permute-out: out[j] = y[inv[j]] for j < nout.
+//
+// What bounds them: bytes.  Each moves its rows once (x_pad and y written,
+// x and y read, one 4-byte index a row), a few MB at the benchmark's shapes
+// (0.8 MB at N = 40 000, k = 1; 32 MB at N = 100 000, 8 complex columns),
+// so at k = 1 they are as short as a launch.  Both copy whole rows of
+// row_bytes bytes and never look at the elements, so one body serves
+// float32, complex64, float64 and complex128: the rows move in vectors of
+// 16 bytes where the row length and every pointer allow it, else 8 or 4.
+// A row's vectors go to 2^shift consecutive threads (the least power of
+// two at or above the row's vector count, at most 32), so a warp reads
+// whole rows, or 32 consecutive vectors of one, and neighbouring threads
+// touch neighbouring addresses; there is no division per element.
+// The kernels trust the indices (a permutation, as HMatrix builds them);
+// the wrapper checks every size.
+
+namespace {
+
+constexpr int kPermThreads = 256;
+constexpr long long kPermMaxBlocks = 32768;  // the rest by a grid-stride loop
+
+// The rows a thread's group of 2^shift threads walks (r, r + step, ...)
+// and the thread's first vector of each (lane, stepping by width).
+struct RowWalk {
+    long long r, step;
+    int lane, width;
+    __device__ RowWalk(int shift) {
+        const int per_block = kPermThreads >> shift;
+        r = (long long)blockIdx.x * per_block + (threadIdx.x >> shift);
+        step = (long long)gridDim.x * per_block;
+        lane = threadIdx.x & ((1 << shift) - 1);
+        width = 1 << shift;
+    }
+};
+
+template <typename V>
+__device__ __forceinline__ void copy_row(V* __restrict__ dst, const V* __restrict__ src,
+                                         int row, const RowWalk& w) {
+    for (int c = w.lane; c < row; c += w.width) dst[c] = src[c];
+}
+
+template <typename V>
+__device__ __forceinline__ void zero_row(V* __restrict__ dst, int row,
+                                         const RowWalk& w) {
+    for (int c = w.lane; c < row; c += w.width) dst[c] = V{};
+}
+
+// Rows [0, pad_len) of x_pad, then rows [0, ny) of y, as one row space.
+template <typename V>
+__global__ void __launch_bounds__(kPermThreads)
+user_permute_in_kernel(const V* __restrict__ x, const int* __restrict__ perm,
+                       long long n, V* __restrict__ x_pad, long long pad_len,
+                       V* __restrict__ y, long long ny, int row, int shift) {
+    RowWalk w(shift);
+    for (; w.r < pad_len + ny; w.r += w.step) {
+        if (w.r < n)
+            copy_row(x_pad + w.r * row, x + (long long)perm[w.r] * row, row, w);
+        else if (w.r < pad_len)
+            zero_row(x_pad + w.r * row, row, w);
+        else
+            zero_row(y + (w.r - pad_len) * row, row, w);
+    }
+}
+
+template <typename V>
+__global__ void __launch_bounds__(kPermThreads)
+user_permute_out_kernel(const V* __restrict__ y, const int* __restrict__ inv,
+                        long long nout, V* __restrict__ out, int row, int shift) {
+    RowWalk w(shift);
+    for (; w.r < nout; w.r += w.step)
+        copy_row(out + w.r * row, y + (long long)inv[w.r] * row, row, w);
+}
+
+// Calls f with a zero vector of the widest type (16, 8 or 4 bytes) that
+// divides row_bytes and every address in `addresses` (OR-ed together).
+template <typename F>
+cudaError_t with_row_vector(long long row_bytes, uintptr_t addresses, F f) {
+    const uintptr_t a = (uintptr_t)row_bytes | addresses;
+    if (a % 16 == 0) return f(uint4{});
+    if (a % 8 == 0) return f(uint2{});
+    if (a % 4 == 0) return f(0u);
+    return cudaErrorInvalidValue;  // rows of whole 4-byte elements only
+}
+
+// (grid, shift) of a launch over `rows` rows of `row` vectors.
+void row_grid(long long rows, int row, unsigned* grid, int* shift) {
+    int s = 0;
+    while ((1 << s) < row && s < 5) ++s;
+    const long long per_block = kPermThreads >> s;
+    long long blocks = (rows + per_block - 1) / per_block;
+    *grid = (unsigned)(blocks < kPermMaxBlocks ? blocks : kPermMaxBlocks);
+    *shift = s;
+}
+
+}  // namespace
+
+// x (n rows), x_pad (pad_len rows) and y (ny rows) are row-major with rows
+// of row_bytes bytes; perm is n int32 row numbers of x.  Returns the
+// cudaError_t of the launch (cudaErrorInvalidValue for a row that is not a
+// whole number of 4-byte words, or n > pad_len); no launch for no bytes.
+extern "C" int hm_permute_in(const void* x, const int* perm, long long n,
+                             void* x_pad, long long pad_len, void* y,
+                             long long ny, long long row_bytes, void* stream) {
+    if (n < 0 || n > pad_len || ny < 0 || row_bytes < 0)
+        return cudaErrorInvalidValue;
+    if (row_bytes == 0 || pad_len + ny == 0) return cudaSuccess;
+    const uintptr_t addresses = (uintptr_t)x | (uintptr_t)x_pad | (uintptr_t)y;
+    return with_row_vector(row_bytes, addresses, [&](auto zero) {
+        using V = decltype(zero);
+        const int row = (int)(row_bytes / sizeof(V));
+        unsigned grid;
+        int shift;
+        row_grid(pad_len + ny, row, &grid, &shift);
+        user_permute_in_kernel<V><<<grid, kPermThreads, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const V*>(x), perm, n, static_cast<V*>(x_pad), pad_len,
+            static_cast<V*>(y), ny, row, shift);
+        return cudaGetLastError();
+    });
+}
+
+// out (nout rows) = y rows inv[0..nout), rows of row_bytes bytes.
+extern "C" int hm_permute_out(const void* y, const int* inv, long long nout,
+                              void* out, long long row_bytes, void* stream) {
+    if (nout < 0 || row_bytes < 0) return cudaErrorInvalidValue;
+    if (row_bytes == 0 || nout == 0) return cudaSuccess;
+    const uintptr_t addresses = (uintptr_t)y | (uintptr_t)out;
+    return with_row_vector(row_bytes, addresses, [&](auto zero) {
+        using V = decltype(zero);
+        const int row = (int)(row_bytes / sizeof(V));
+        unsigned grid;
+        int shift;
+        row_grid(nout, row, &grid, &shift);
+        user_permute_out_kernel<V><<<grid, kPermThreads, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const V*>(y), inv, nout, static_cast<V*>(out), row,
+            shift);
+        return cudaGetLastError();
+    });
+}
+
 extern "C" const char* hm_error_string(int code) {
     return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -238,22 +238,28 @@ class HMatrix:
         y = y[:, 0] if squeeze else y
         return y if device_io else y.cpu().numpy()
 
-    def _device_perms(self, trans: str):
-        """(perm_in, inv_perm_out) int64 device tensors for user-numbering
-        products, cached per trans direction."""
+    def _device_perms(self, trans: str, dtype=torch.int64):
+        """(perm_in, inv_perm_out) device tensors of `dtype` for
+        user-numbering products, cached per trans direction and dtype:
+        int64 for indexing, int32 for the permutation kernels that
+        `matvec` runs on the card."""
         if self._dev_perms is None:
             self._dev_perms = {}
-        key = "N" if trans == "N" else "T"
+        key = ("N" if trans == "N" else "T", dtype)
         if key not in self._dev_perms:
             perm_t = self.plan.target_root.get_permutation()
             perm_s = self.plan.source_root.get_permutation()
-            perm_in = perm_s if key == "N" else perm_t
-            perm_out = perm_t if key == "N" else perm_s
+            perm_in = perm_s if key[0] == "N" else perm_t
+            perm_out = perm_t if key[0] == "N" else perm_s
+            for perm in (perm_in, perm_out):  # the kernels read them unchecked
+                if not np.array_equal(np.sort(perm), np.arange(len(perm))):
+                    raise ValueError("a cluster permutation is not a "
+                                     "permutation of its rows")
             inv_out = np.empty_like(perm_out)
             inv_out[perm_out] = np.arange(len(perm_out))
             self._dev_perms[key] = (
-                torch.as_tensor(perm_in, dtype=torch.int64, device=self.device),
-                torch.as_tensor(inv_out, dtype=torch.int64, device=self.device))
+                torch.as_tensor(perm_in, dtype=dtype, device=self.device),
+                torch.as_tensor(inv_out, dtype=dtype, device=self.device))
         return self._dev_perms[key]
 
     def matvec(self, x, trans: str = "N"):
@@ -265,7 +271,7 @@ class HMatrix:
         if not self.is_root():
             return self.matvec_internal(x, trans)
         x, device_io = self._to_device(x)
-        perm_in, inv_out = self._device_perms(trans)
+        perm_in, inv_out = self._device_perms(trans, torch.int32)
         if x.shape[0] != perm_in.shape[0]:
             raise ValueError(
                 f"expected input of size {perm_in.shape[0]}, got {x.shape[0]}")

@@ -93,6 +93,16 @@ over the interleaved real columns), which keeps f32's round-off.
 
 The operand's device decides: CPU tensors go to the plain version; on a
 CUDA tensor this always launches a kernel or raises, never falls back.
+
+A product in user numbering on the card (`apply_hmatrix_user_cuda`, which
+HMatrix.matvec reaches through ops/matvec.py `apply_hmatrix_user`) is three
+device passes, all in csrc/hmatrix_product.cu: the permute-in kernel
+(`hm_permute_in`: x_pad[i] = x[perm_in[i]], zero padding rows, y zeroed),
+the product launch above into that y, and the permute-out kernel
+(`hm_permute_out`: out[j] = y[inv_perm_out[j]]).  Both copy whole rows, so
+they serve every dtype; their plain versions are ops/matvec.py
+`permute_in` / `permute_out`, which the CPU runs.  LAUNCH_COUNTS counts
+them as PERMUTE_IN_NAME and PERMUTE_OUT_NAME, one each a product.
 """
 
 from __future__ import annotations
@@ -113,6 +123,10 @@ C128_NAME = "hmatrix_product_complex128"
 F64_F32_NAME = "hmatrix_product_f64_from_f32"  # float32 data, float64 x
 C128_C64_NAME = "hmatrix_product_complex128_from_c64"  # complex64 data
 F64_LIBRARY = "hmatrix_product_f64"  # csrc/hmatrix_product_f64.cu
+# the user-numbering permutations around a product on the card
+# (`apply_hmatrix_user_cuda`), in K1 / K2's library
+PERMUTE_IN_NAME = "hmatrix_product/permute_in"
+PERMUTE_OUT_NAME = "hmatrix_product/permute_out"
 
 MODES = ("fused", "per_bucket", "seq")
 
@@ -137,6 +151,8 @@ LAUNCH_COUNTS[F64_NAME] = 0
 LAUNCH_COUNTS[C128_NAME] = 0
 LAUNCH_COUNTS[F64_F32_NAME] = 0
 LAUNCH_COUNTS[C128_C64_NAME] = 0
+LAUNCH_COUNTS[PERMUTE_IN_NAME] = 0
+LAUNCH_COUNTS[PERMUTE_OUT_NAME] = 0
 
 # the data dtype each kernel takes
 _KERNEL_OF = {torch.float32: KERNEL_NAME, torch.complex64: K2_NAME,
@@ -189,6 +205,12 @@ def _library():
             fn.restype = i
     lib.hm_k1_launch_al.argtypes = lib.hm_k1_launch.argtypes
     lib.hm_k1_launch_al.restype = i
+    # x, perm, n, x_pad, pad_len, y, ny, row_bytes, stream
+    lib.hm_permute_in.argtypes = [p, p, ll, p, ll, p, ll, ll, p]
+    lib.hm_permute_in.restype = i
+    # y, inv, nout, out, row_bytes, stream
+    lib.hm_permute_out.argtypes = [p, p, ll, p, ll, p]
+    lib.hm_permute_out.restype = i
     lib.hm_error_string.argtypes = [i]
     lib.hm_error_string.restype = ctypes.c_char_p
     _LIBS[KERNEL_NAME] = lib
@@ -374,13 +396,27 @@ class BucketTable:
                 self.items = _item_records(data, self.work.items, device)
                 self.items_by_bucket = _item_records(
                     data, self.work.by_bucket, device)
+        self._kernels = {}  # (x dtype, mode) -> `kernel_for`'s answer
+
+    def kernel_for(self, x_dtype, mode: str):
+        """`dispatch(self.dtype, x_dtype, mode)`, worked out once per x
+        dtype and mode; (None, x_dtype, False) for data without buckets
+        (after checking x_dtype).  Raises as `dispatch` does, every time."""
+        key = (x_dtype, mode)
+        if key not in self._kernels:
+            if self.dtype is None:
+                _check_dtype(x_dtype, "x_pad")
+                self._kernels[key] = (None, x_dtype, False)
+            else:
+                self._kernels[key] = dispatch(self.dtype, x_dtype, mode)
+        return self._kernels[key]
 
 
-def _launch_f64(name, table, x, y, trans, sym):
+def _launch_f64(name, table, x, y, trans, sym, stream):
     """Kernel `name` (one of the float64 / complex128 family, `_F64_ENTRY`)
     over the work list of `table` largest first, x (L, k) into the zeroed y
-    (ny, k), both float64 or complex128: one launch per pass of PASS_COLS
-    columns."""
+    (ny, k), both float64 or complex128, on `stream` of the current device:
+    one launch per pass of PASS_COLS columns."""
     lib = _f64_library()
     L, k = x.shape
     io = (x.data_ptr(), L, y.data_ptr(), y.shape[0], k, int(trans != "N"),
@@ -389,28 +425,26 @@ def _launch_f64(name, table, x, y, trans, sym):
     fn = getattr(lib, entry)
     if conj:
         io += tuple(int(c) for c in conj_flags(trans, sym))
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        rc = fn(table.items.data_ptr(), len(table.work.items), *io, stream)
+    rc = fn(table.items.data_ptr(), len(table.work.items), *io, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
                            f"({lib.hm_f64_error_string(rc).decode()})")
     LAUNCH_COUNTS[name] += -(-k // PASS_COLS[x.dtype])
 
 
-def _launch(name, mode, table, x, y, trans, sym):
+def _launch(name, mode, table, x, y, trans, sym, stream):
     """Kernel `name` in launch structure `mode` over the work list of
-    `table`, x (L, k) into the zeroed y (ny, k); x and y hold the kernel's
-    dtype.  K1 / K2: 'fused' (K1-al on aligned real data) and 'seq' launch
-    once per pass of PASS_COLS columns, over the list largest first and in
-    bucket order; 'per_bucket' once per bucket and pass.  The float64 /
-    complex128 family has the 'fused' structure only."""
+    `table`, x (L, k) into the zeroed y (ny, k) on `stream`; x and y hold
+    the kernel's dtype and lie on the current device.  K1 / K2: 'fused'
+    (K1-al on aligned real data) and 'seq' launch once per pass of
+    PASS_COLS columns, over the list largest first and in bucket order;
+    'per_bucket' once per bucket and pass.  The float64 / complex128 family
+    has the 'fused' structure only."""
     if name in _F64_ENTRY:  # 'fused' only (`dispatch`)
-        return _launch_f64(name, table, x, y, trans, sym)
+        return _launch_f64(name, table, x, y, trans, sym, stream)
     lib = _library()
     aligned = name == KERNEL_NAME and mode == "fused" and table.aligned
     counter = ALIGNED_NAME if aligned else launch_name(name, mode)
-    device = x.device
     L, k = x.shape
     pre = "hm_k1" if name == KERNEL_NAME else "hm_k2"
     io = (x.data_ptr(), L, y.data_ptr(), y.shape[0], k, int(trans != "N"),
@@ -419,26 +453,36 @@ def _launch(name, mode, table, x, y, trans, sym):
         io += tuple(int(c) for c in conj_flags(trans, sym))
     passes = -(-k // PASS_COLS[x.dtype])
     n = len(table.work.items)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        if mode == "per_bucket":
-            rc = getattr(lib, f"{pre}_launch_per_bucket")(
-                table.items_by_bucket.data_ptr(),
-                table.work.ranges.ctypes.data, table.n_buckets, *io, stream)
-            launches = table.n_buckets * passes
-        elif mode == "seq":
-            rc = getattr(lib, f"{pre}_launch_seq")(
-                table.items_by_bucket.data_ptr(), n, *io, stream)
-            launches = passes
-        else:
-            fn = (lib.hm_k1_launch_al if aligned
-                  else getattr(lib, f"{pre}_launch"))
-            rc = fn(table.items.data_ptr(), n, *io, stream)
-            launches = passes
-    if rc != 0:
-        raise RuntimeError(f"{counter} launch failed: CUDA "
-                           f"error {rc} ({lib.hm_error_string(rc).decode()})")
+    if mode == "per_bucket":
+        rc = getattr(lib, f"{pre}_launch_per_bucket")(
+            table.items_by_bucket.data_ptr(),
+            table.work.ranges.ctypes.data, table.n_buckets, *io, stream)
+        launches = table.n_buckets * passes
+    elif mode == "seq":
+        rc = getattr(lib, f"{pre}_launch_seq")(
+            table.items_by_bucket.data_ptr(), n, *io, stream)
+        launches = passes
+    else:
+        fn = (lib.hm_k1_launch_al if aligned
+              else getattr(lib, f"{pre}_launch"))
+        rc = fn(table.items.data_ptr(), n, *io, stream)
+        launches = passes
+    _raise_on(rc, lib, counter)
     LAUNCH_COUNTS[counter] += launches
+
+
+def _raise_on(rc, lib, name):
+    """Raises if a launch of `name` from K1 / K2's library returned CUDA
+    error `rc`."""
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA "
+                           f"error {rc} ({lib.hm_error_string(rc).decode()})")
+
+
+def _real_view(t):
+    """The (rows, 2k) real view of a complex (rows, k) tensor (re, im
+    interleaved per column; no copy)."""
+    return torch.view_as_real(t).reshape(t.shape[0], 2 * t.shape[1])
 
 
 def real_view_product(real_product, x_pad, ny_pad: int):
@@ -448,10 +492,9 @@ def real_view_product(real_product, x_pad, ny_pad: int):
     view (re, im interleaved per column, no copy) and
     `real_product(x_real, y_real)` adds H x_real into the (ny_pad, 2k) real
     view of the zeroed complex result, which is returned."""
-    L, k = x_pad.shape
-    y = torch.zeros((ny_pad, k), dtype=x_pad.dtype, device=x_pad.device)
-    real_product(torch.view_as_real(x_pad).reshape(L, 2 * k),
-                 torch.view_as_real(y).reshape(ny_pad, 2 * k))
+    y = torch.zeros((ny_pad, x_pad.shape[1]), dtype=x_pad.dtype,
+                    device=x_pad.device)
+    real_product(_real_view(x_pad), _real_view(y))
     return y
 
 
@@ -477,17 +520,15 @@ def dispatch(data_dtype, x_dtype, mode: str = "fused"):
     return name, dtype, dtype.is_complex and not data_dtype.is_complex
 
 
-def apply_hmatrix_cuda(data, x_pad, ny_pad: int, trans: str, sym: str,
-                       table: BucketTable | None = None):
-    """y_pad (ny_pad, k) = H^(trans) x_pad through kernel K1, K2 or their
-    float64 / complex128 siblings (CUDA tensors) or their plain version
-    (CPU tensors).  `table`: the data's
-    BucketTable, built here when not given.  See the module docstring."""
+def _checked_table(data, device, L: int, ny_pad: int, trans: str, sym: str,
+                   table):
+    """The checks of every product of `data` on `device` with x of L rows
+    into y of ny_pad rows; returns the data's BucketTable (`table`, or one
+    built here)."""
     if trans not in ("N", "T", "C"):
         raise ValueError(f"trans must be 'N', 'T' or 'C', got {trans!r}")
     if sym not in ("N", "S", "H"):
         raise ValueError(f"sym must be 'N', 'S' or 'H', got {sym!r}")
-    device = x_pad.device
     if table is None:
         table = BucketTable(data, device)
     elif table.device != device:
@@ -496,28 +537,113 @@ def apply_hmatrix_cuda(data, x_pad, ny_pad: int, trans: str, sym: str,
     if table.dtype != _data_dtype(data):
         raise ValueError(f"the bucket table was built for {table.dtype} "
                          f"data, not {_data_dtype(data)}")
-    L = x_pad.shape[0]
     if table.extent > min(L, ny_pad):
         raise ValueError(f"a block segment ends at row {table.extent}, "
                          f"past x ({L} rows) or y ({ny_pad} rows)")
+    return table
+
+
+def apply_hmatrix_cuda(data, x_pad, ny_pad: int, trans: str, sym: str,
+                       table: BucketTable | None = None):
+    """y_pad (ny_pad, k) = H^(trans) x_pad through kernel K1, K2 or their
+    float64 / complex128 siblings (CUDA tensors) or their plain version
+    (CPU tensors).  `table`: the data's
+    BucketTable, built here when not given.  See the module docstring."""
+    device = x_pad.device
+    table = _checked_table(data, device, x_pad.shape[0], ny_pad, trans, sym,
+                           table)
     mode = kernel_mode()
     if device.type == "cpu":
         return apply_hmatrix_padded(data, x_pad, ny_pad, trans, sym)
     k = x_pad.shape[1]
-    if table.dtype is None:
-        _check_dtype(x_pad.dtype, "x_pad")
-        return torch.zeros((ny_pad, k), dtype=x_pad.dtype, device=device)
-    name, dtype, real_view = dispatch(table.dtype, x_pad.dtype, mode)
+    name, dtype, real_view = table.kernel_for(x_pad.dtype, mode)
     if table.n_blocks == 0 or k == 0:
         return torch.zeros((ny_pad, k), dtype=dtype, device=device)
-    if real_view:
-        x_pad = x_pad.to(dtype)
-        _check_operand(x_pad, "x_pad", device, 2, dtype)
-        return real_view_product(
-            lambda xr, yr: _launch(name, mode, table, xr, yr, trans, sym),
-            x_pad, ny_pad)
     x_pad = x_pad.to(dtype)
     _check_operand(x_pad, "x_pad", device, 2, dtype)
-    y = torch.zeros((ny_pad, k), dtype=dtype, device=device)
-    _launch(name, mode, table, x_pad, y, trans, sym)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        if real_view:
+            return real_view_product(
+                lambda xr, yr: _launch(name, mode, table, xr, yr, trans, sym,
+                                       stream), x_pad, ny_pad)
+        y = torch.zeros((ny_pad, k), dtype=dtype, device=device)
+        _launch(name, mode, table, x_pad, y, trans, sym, stream)
     return y
+
+
+def _check_index(t, name, device, n):
+    if (t.device != device or t.dtype != torch.int32 or t.shape != (n,)
+            or not t.is_contiguous()):
+        raise ValueError(f"{name} must be a contiguous ({n},) int32 tensor "
+                         f"on {device}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")
+
+
+def apply_hmatrix_user_cuda(data, perm_in, inv_perm_out, x2d, pad_len: int,
+                            trans: str, sym: str, nout: int,
+                            table: BucketTable | None = None):
+    """y (nout, k) = H^(trans) x2d in user numbering on the card, in three
+    hand-written device passes: the permute-in kernel (x_pad[i] =
+    x[perm_in[i]], zero padding rows up to pad_len, y zeroed), the product
+    (`_launch`, as `apply_hmatrix_cuda`), the permute-out kernel (out[j] =
+    y[inv_perm_out[j]]).  x2d (n, k) on a CUDA device, promoted first to
+    the product's dtype where it differs (and made contiguous);
+    perm_in (n,) and inv_perm_out (nout,) contiguous int32 permutations on
+    that device, which the kernels read unchecked (HMatrix builds them
+    from its clusters).  The answer is a new tensor on every call.  Counts
+    one PERMUTE_IN_NAME and one PERMUTE_OUT_NAME launch a product with
+    columns.  Their plain versions are ops/matvec.py `permute_in` /
+    `permute_out`."""
+    device = x2d.device
+    table = _checked_table(data, device, pad_len, pad_len, trans, sym, table)
+    mode = kernel_mode()
+    name, dtype, real_view = table.kernel_for(x2d.dtype, mode)
+    if x2d.ndim != 2:
+        raise ValueError(f"x must be 2-d, got shape {tuple(x2d.shape)}")
+    n, k = x2d.shape
+    _check_index(perm_in, "perm_in", device, n)
+    _check_index(inv_perm_out, "inv_perm_out", device, nout)
+    if max(n, nout) > pad_len:
+        raise ValueError(f"{max(n, nout)} rows do not fit the padded length "
+                         f"{pad_len}")
+    out = torch.empty((nout, k), dtype=dtype, device=device)
+    if k == 0:
+        return out
+    x = x2d.to(dtype).contiguous()
+    x_pad = torch.empty((pad_len, k), dtype=dtype, device=device)
+    y = torch.empty((pad_len, k), dtype=dtype, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        launch_permute_in(x, perm_in, x_pad, y, stream)
+        if table.n_blocks:
+            _check_operand(x_pad, "x_pad", device, 2, dtype)
+            xr, yr = ((_real_view(x_pad), _real_view(y)) if real_view
+                      else (x_pad, y))
+            _launch(name, mode, table, xr, yr, trans, sym, stream)
+        launch_permute_out(y, inv_perm_out, out, stream)
+    return out
+
+
+def launch_permute_in(x, perm_in, x_pad, y, stream):
+    """The permute-in kernel on `stream` of the current device: x_pad[i] =
+    x[perm_in[i]] for i below x's rows, zero rows after them, and y
+    zeroed.  x, x_pad and y are contiguous, of one dtype and row width;
+    perm_in an int32 permutation of x's rows (the caller checks them)."""
+    lib = _library()
+    _raise_on(lib.hm_permute_in(
+        x.data_ptr(), perm_in.data_ptr(), x.shape[0], x_pad.data_ptr(),
+        x_pad.shape[0], y.data_ptr(), y.shape[0],
+        x.shape[1] * x.element_size(), stream), lib, PERMUTE_IN_NAME)
+    LAUNCH_COUNTS[PERMUTE_IN_NAME] += 1
+
+
+def launch_permute_out(y, inv_perm_out, out, stream):
+    """The permute-out kernel on `stream` of the current device: out[j] =
+    y[inv_perm_out[j]] for j below out's rows, as `launch_permute_in`
+    takes its operands."""
+    lib = _library()
+    _raise_on(lib.hm_permute_out(
+        y.data_ptr(), inv_perm_out.data_ptr(), out.shape[0], out.data_ptr(),
+        out.shape[1] * out.element_size(), stream), lib, PERMUTE_OUT_NAME)
+    LAUNCH_COUNTS[PERMUTE_OUT_NAME] += 1

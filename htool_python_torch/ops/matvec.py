@@ -297,20 +297,41 @@ def apply_work_list(data, wl: WorkList, x_pad, ny_pad: int, trans: str,
     return y
 
 
+def permute_in(x2d, perm_in, pad_len: int, dtype):
+    """x_pad (pad_len, k) of `dtype` with x_pad[i] = x2d[perm_in[i]] for i
+    below x2d's rows and zero rows after them: the plain version of the
+    permute-in kernel (csrc/hmatrix_product.cu `hm_permute_in`, which also
+    zeroes the product's y; the plain product zeroes its own)."""
+    x_pad = torch.zeros((pad_len, x2d.shape[1]), dtype=dtype,
+                        device=x2d.device)
+    x_pad[:x2d.shape[0]] = x2d[perm_in]
+    return x_pad
+
+
+def permute_out(y_pad, inv_perm_out, nout: int):
+    """y_pad's first nout rows in user numbering, out[j] =
+    y_pad[inv_perm_out[j]]: the plain version of the permute-out kernel
+    (`hm_permute_out`)."""
+    return y_pad[:nout][inv_perm_out]
+
+
 def apply_hmatrix_user(data, perm_in, inv_perm_out, x2d, pad_len: int,
                        trans: str, sym: str, nout: int, table=None):
     """End-to-end product in user numbering: permute in -> pad -> bucketed
     product (the wrapper of kernels K1 and K2, with the data's BucketTable
-    `table`) -> un-permute.  perm_in / inv_perm_out are int64 tensors on
-    x2d's device."""
-    from .cuda_matvec import apply_hmatrix_cuda
+    `table`) -> un-permute.  perm_in / inv_perm_out are permutations, as
+    integer tensors on x2d's device (int32 on CUDA).  On a CUDA tensor
+    the two permutations are kernels too (ops/cuda_matvec.py
+    `apply_hmatrix_user_cuda`); on the CPU `permute_in` and `permute_out`,
+    their plain versions, run around the plain product."""
+    from .cuda_matvec import apply_hmatrix_cuda, apply_hmatrix_user_cuda
 
-    dtype = result_dtype(data, x2d.dtype)
-    x_pad = torch.zeros((pad_len, x2d.shape[1]), dtype=dtype,
-                        device=x2d.device)
-    x_pad[:x2d.shape[0]] = x2d[perm_in]
+    if x2d.device.type == "cuda":
+        return apply_hmatrix_user_cuda(data, perm_in, inv_perm_out, x2d,
+                                       pad_len, trans, sym, nout, table)
+    x_pad = permute_in(x2d, perm_in, pad_len, result_dtype(data, x2d.dtype))
     y_pad = apply_hmatrix_cuda(data, x_pad, pad_len, trans, sym, table)
-    return y_pad[:nout][inv_perm_out]
+    return permute_out(y_pad, inv_perm_out, nout)
 
 
 class RankMajorFactors(tuple):

@@ -4,8 +4,10 @@ low-rank layout, the HODLR factorization through K1 and K1-al, one- and
 two-level (GenEO) DDM solves on the golden data, the profiling path's
 kernels P1-P4 and K1's attribution sweeps, the float64 / complex128 kernels
 (csrc/hmatrix_product_f64.cu, also on float32 / complex64 data with a
-float64 / complex128 x; within 1e-12, f64 atomics) and the sharded
-operator on a world-1 NCCL group (skips without a card).
+float64 / complex128 x; within 1e-12, f64 atomics), the sharded
+operator on a world-1 NCCL group, and the user-numbering product's
+permutation kernels (bit for bit) around every product kernel (skips
+without a card).
 
 Run on a machine with a CUDA device:
     python -m pytest --noconftest tests/test_torch_gpu.py
@@ -1036,3 +1038,148 @@ def test_sharded_f64_product_on_a_world_of_one(cuda_device):
                 <= 1e-10 * np.linalg.norm(dense.T @ x))
     finally:
         dist.destroy_process_group()
+
+
+def _bits(t):
+    """t's bytes, so that equality is bit for bit."""
+    return t.contiguous().view(torch.uint8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64,
+                                   torch.float64, torch.complex128])
+def test_user_numbering_product_kernels(cuda_device, dtype):
+    """The product in user numbering on the card (`apply_hmatrix_user_cuda`:
+    the permute-in kernel, the product, the permute-out kernel) against its
+    plain version, every storage and trans, k from one column to more than
+    one pass, n = 4 093 rows (not a multiple of 4): the product within the
+    kernels' tolerance (1e-5 relative for K1 / K2, 1e-12 for the float64 /
+    complex128 family), one permute-in and one permute-out a product.  The
+    two permutation kernels alone equal their plain versions bit for bit
+    (a permutation is an exact copy; y zeroed), in 16-, 8- and 4-byte
+    vectors (k and the dtype set a row's length; one x starts one element
+    past an aligned address)."""
+    from htool_python_torch.ops.matvec import permute_in, permute_out
+
+    tol = 1e-12 if dtype in (torch.float64, torch.complex128) else 1e-5
+    n, dev = 4093, cuda_device
+    rng = np.random.RandomState(0)
+    for symmetry in ("N", "S", "H"):
+        data, L = _wide_buckets(dtype, dev, symmetry)
+        table = cuda_matvec.BucketTable(data, dev)
+        p_in, inv = (torch.as_tensor(p, dtype=torch.int32, device=dev)
+                     for p in (rng.permutation(n),
+                               np.argsort(rng.permutation(n))))
+        for trans in ("N", "T", "C"):
+            for k in (1, 2, 8, 9, 128, 129):
+                g = torch.Generator(dev).manual_seed(k)
+                x = torch.randn((n, k), dtype=dtype, device=dev, generator=g)
+                before = dict(cuda_matvec.LAUNCH_COUNTS)
+                y = cuda_matvec.apply_hmatrix_user_cuda(
+                    data, p_in, inv, x, L, trans, symmetry, n, table)
+                torch.cuda.synchronize()
+                for name in (cuda_matvec.PERMUTE_IN_NAME,
+                             cuda_matvec.PERMUTE_OUT_NAME):
+                    assert cuda_matvec.LAUNCH_COUNTS[name] == before[name] + 1
+                x_pad_plain = permute_in(x, p_in.long(), L, dtype)
+                y_pad_plain = apply_hmatrix_padded(data, x_pad_plain, L,
+                                                   trans, symmetry)
+                y_plain = permute_out(y_pad_plain, inv.long(), n)
+                assert y.shape == y_plain.shape and y.dtype == dtype
+                err = (y - y_plain).abs().max() / y_plain.abs().max()
+                assert err <= tol, (symmetry, trans, k, float(err))
+                if trans != "N":
+                    continue
+                # the two kernels alone, into buffers full of NaN
+                x_pad = torch.full((L, k), float("nan"), dtype=dtype,
+                                   device=dev)
+                y_zero, out = torch.full_like(x_pad, float("nan")), \
+                    torch.full((n, k), float("nan"), dtype=dtype, device=dev)
+                with torch.cuda.device(dev):
+                    stream = torch.cuda.current_stream(dev).cuda_stream
+                    cuda_matvec.launch_permute_in(x, p_in, x_pad, y_zero,
+                                                  stream)
+                    cuda_matvec.launch_permute_out(y_pad_plain, inv, out,
+                                                   stream)
+                torch.cuda.synchronize()
+                assert torch.equal(_bits(x_pad), _bits(x_pad_plain))
+                assert torch.equal(_bits(y_zero),
+                                   _bits(torch.zeros_like(y_zero)))
+                assert torch.equal(_bits(out), _bits(y_plain))
+    # an x one element past an aligned address: 4-byte vectors in the
+    # 16-byte rows of float32, 8-byte ones in complex64 and float64
+    k = 16 // torch.empty((), dtype=dtype).element_size()
+    x = torch.randn(n * k + 1, dtype=dtype, device=dev)[1:].view(n, k)
+    assert x.data_ptr() % 16 == x.element_size() % 16
+    y = cuda_matvec.apply_hmatrix_user_cuda(data, p_in, inv, x, L, "N",
+                                            symmetry, n, table)
+    y_plain = _plain_user_product(data, p_in.long(), inv.long(), x, L, "N",
+                                  symmetry, n, dtype)
+    assert (y - y_plain).abs().max() <= tol * y_plain.abs().max()
+
+
+def _plain_user_product(data, perm_in, inv_out, x2d, L, trans, sym, nout,
+                        dtype):
+    """The product in user numbering by the plain versions, on x2d's
+    device."""
+    from htool_python_torch.ops.matvec import permute_in, permute_out
+
+    return permute_out(apply_hmatrix_padded(
+        data, permute_in(x2d, perm_in, L, dtype), L, trans, sym), inv_out,
+        nout)
+
+
+@pytest.mark.gpu
+def test_user_numbering_answers_are_fresh(cuda_device):
+    """HMatrix.matvec on the card: every answer is a new tensor (callers
+    keep earlier ones: Krylov bases, the benchmark's reservoir), the first
+    unchanged by the second call; one K1 launch, one permute-in and one
+    permute-out a product; a numpy x (1-D, and 2-D in Fortran order, which
+    the wrapper makes contiguous) gives the device input's answer; a
+    float64 x on float32 data is promoted before the permute-in kernel."""
+    n = 2999
+    points = np.random.RandomState(2).rand(3, n)
+    builder = T.ClusterTreeBuilder()
+    builder.set_maximal_leaf_size(64)
+    cluster = builder.create_cluster_tree(points, 2)
+    hb = T.HMatrixTreeBuilder(1e-3, 10.0, "N", "N", device=cuda_device)
+    hb.set_dtype(torch.float32)
+    hm = hb.build(T.KernelGenerator(inverse_distance_kernel(0.1), points,
+                                    points, device=cuda_device),
+                  cluster, cluster)
+    g = torch.Generator(cuda_device).manual_seed(3)
+    x1, x2 = (torch.rand(n, device=cuda_device, generator=g)
+              for _ in range(2))
+    names = (cuda_matvec.KERNEL_NAME, cuda_matvec.PERMUTE_IN_NAME,
+             cuda_matvec.PERMUTE_OUT_NAME)
+    before = {name: cuda_matvec.LAUNCH_COUNTS[name] for name in names}
+    y1 = hm.matvec(x1)
+    kept = y1.clone()
+    y2 = hm.matvec(x2)
+    torch.cuda.synchronize()
+    for name in names:
+        assert cuda_matvec.LAUNCH_COUNTS[name] == before[name] + 2, name
+    assert y1.data_ptr() != y2.data_ptr()
+    assert torch.equal(y1, kept)
+    perm_in, inv_out = hm._device_perms("N")  # int64: the plain version
+    y_plain = _plain_user_product(hm._data, perm_in, inv_out, x1[:, None],
+                                  hm._pad_len, "N", "N", n,
+                                  torch.float32)[:, 0]
+    assert (y1 - y_plain).abs().max() <= 1e-5 * y_plain.abs().max()
+    y_host = hm * x1.cpu().numpy()
+    assert (np.abs(y_host - y1.cpu().numpy()).max()
+            <= 1e-5 * float(y_plain.abs().max()))
+    X = np.asfortranarray(np.random.RandomState(4).rand(n, 3)
+                          .astype(np.float32))
+    Y = hm @ X
+    Y_dev = hm.matvec(torch.as_tensor(np.ascontiguousarray(X),
+                                      device=cuda_device)).cpu().numpy()
+    assert np.abs(Y - Y_dev).max() <= 1e-5 * np.abs(Y_dev).max()
+    before = cuda_matvec.LAUNCH_COUNTS[cuda_matvec.F64_F32_NAME]
+    y64 = hm.matvec(x1.double())
+    assert y64.dtype == torch.float64
+    assert cuda_matvec.LAUNCH_COUNTS[cuda_matvec.F64_F32_NAME] == before + 1
+    y64_plain = _plain_user_product(hm._data, perm_in, inv_out,
+                                    x1.double()[:, None], hm._pad_len, "N",
+                                    "N", n, torch.float64)[:, 0]
+    assert (y64 - y64_plain).abs().max() <= 1e-12 * y64_plain.abs().max()
