@@ -28,6 +28,17 @@ Phases, in this order, one line each (`phase <name> {json}`):
                 -> HMatrix.matvec / @ in user numbering (k = 1 and 8), with
                 kernel launches counted around the products and the sampled
                 error against the dense oracle (<= 1e-3);
+  permute:      the permute-in and permute-out kernels of the product in
+                user numbering (`hm_permute_in` / `hm_permute_out`) at the
+                benchmark cells' shapes: on the headline operator at k = 1
+                and 128 (float32), after `helmholtz` on its operator at
+                k = 8 (complex64), with the operator's own permutations;
+                each bit for bit against its plain version (ops/matvec.py
+                permute_in with y zeroed, permute_out), with ms (CUDA
+                events, calls back to back from the host), device ms
+                (queued behind a spin kernel), the plain version's ms,
+                torch.index_select's (the gather alone) and the bytes
+                bound; launches are the main path's (one each a product);
   surface:      every name of the reference's `__all__` lists (read from
                 its source, not imported) imported from the port on this
                 machine, without matplotlib; get_distributed_information()
@@ -555,6 +566,73 @@ def host_ms(torch, hm, prepared, reps=100):
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     return (t1 - t0) / reps * 1e3
+
+
+def permute_cases(torch, hm, ks, seed, reps=50):
+    """The permute-in and permute-out kernels at `hm`'s shapes (its n rows,
+    padded length and dtype, its int32 permutations of trans 'N') for each
+    k of `ks`, into buffers full of NaN: bit for bit against their plain
+    versions, and timed (see the module docstring, `permute`).  Bytes: x,
+    perm, x_pad and y for permute-in; y's n rows, inv and out for
+    permute-out."""
+    from htool_python_torch.ops import cuda_matvec as cm
+    from htool_python_torch.ops.matvec import permute_in, permute_out
+    from htool_python_torch.profiling.bounds import HBM_BYTES_PER_S
+
+    n, L, dev, dt = int(hm.shape[1]), int(hm._pad_len), hm.device, hm.dtype
+    p32, i32 = hm._device_perms("N", torch.int32)
+    p64, i64 = p32.long(), i32.long()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    nan = float("nan")
+
+    def same(a, b):  # bit for bit
+        return torch.equal(a.contiguous().view(torch.uint8),
+                           b.contiguous().view(torch.uint8))
+
+    cases = []
+    for k in ks:
+        g = torch.Generator(dev).manual_seed(seed + k)
+        x = torch.randn((n, k), dtype=dt, device=dev, generator=g)
+        y_src = torch.randn((L, k), dtype=dt, device=dev, generator=g)
+        x_pad, y, out = (torch.full(shape, nan, dtype=dt, device=dev)
+                         for shape in ((L, k), (L, k), (n, k)))
+
+        def run_in():
+            cm.launch_permute_in(x, p32, x_pad, y, stream)
+
+        def run_out():
+            cm.launch_permute_out(y_src, i32, out, stream)
+
+        run_in()
+        run_out()
+        x_plain = permute_in(x, p64, L, dt)
+        out_plain = permute_out(y_src, i64, n)
+        torch.cuda.synchronize()
+        exact = {"permute_in": same(x_pad, x_plain)
+                 and same(y, torch.zeros_like(y)),
+                 "permute_out": same(out, out_plain)}
+        row = k * x.element_size()
+        nbytes = {"permute_in": n * row + 4 * n + 2 * L * row,
+                  "permute_out": 2 * n * row + 4 * n}
+        runs = {"permute_in": (run_in, lambda: (
+                    permute_in(x, p64, L, dt),
+                    torch.zeros((L, k), dtype=dt, device=dev)),
+                    lambda: torch.index_select(x, 0, p64)),
+                "permute_out": (run_out, lambda: permute_out(y_src, i64, n),
+                                lambda: torch.index_select(y_src[:n], 0,
+                                                           i64))}
+        for name, (run, plain, library) in runs.items():
+            case = dict(kernel=name, k=k, n=n, pad_len=L, dtype=str(dt),
+                        bit_exact=exact[name], bytes=nbytes[name],
+                        bound_ms=nbytes[name] / HBM_BYTES_PER_S * 1e3,
+                        **_timed_case(run, plain, library, reps=reps,
+                                      plain_reps=reps),
+                        device_ms=device_ms(torch, run, reps=reps))
+            emit("permute", **case)
+            check(case["bit_exact"], f"permute: {name} at k = {k} differs "
+                  "from its plain version")
+            cases.append(case)
+    return cases
 
 
 def kernel_cases(torch, operators, phase, dtype, transes, ks=(1, 4, 8),
@@ -2422,9 +2500,12 @@ def surface_compact(torch, hm, counts):
          freed_GB=(mem_before - mem_after) / 1e9,
          repeatable_before=repeatable, bitwise_equal=bitwise,
          max_rel_diff=err, to_dense_raises=raised)
+    # each product in user numbering: K1-al between its two permutations
+    permutes = (cuda_matvec.PERMUTE_IN_NAME, cuda_matvec.PERMUTE_OUT_NAME)
     check(counts.get(cuda_matvec.ALIGNED_NAME, 0) > 0
-          and set(k for k, v in counts.items() if v)
-          == {cuda_matvec.ALIGNED_NAME},
+          and set(k for k, v in counts.items() if v and k not in permutes)
+          == {cuda_matvec.ALIGNED_NAME}
+          and all(counts[k] == len(before) + 1 for k in permutes),
           "surface_compact: the products did not run K1-al alone")
     check(hm._data is None and mem_after < mem_before,
           "surface_compact: the assembly arrays were not freed")
@@ -2860,6 +2941,8 @@ def main(argv=None) -> int:
                                                     C128_C64_NAME, C128_NAME,
                                                     F64_F32_NAME, F64_NAME,
                                                     K2_NAME, KERNEL_NAME,
+                                                    PERMUTE_IN_NAME,
+                                                    PERMUTE_OUT_NAME,
                                                     launch_name)
     from htool_python_torch.ops.matvec import stored_bytes
     from htool_python_torch.profiling.bounds import (p1_best_gbs,
@@ -2890,6 +2973,11 @@ def main(argv=None) -> int:
     hm = main_path(T, torch, args.n, args.seed, device, counts)
     check(counts.get(KERNEL_NAME, 0) > 0,
           "the main path never launched kernel K1")
+    check(counts.get(PERMUTE_IN_NAME) == counts.get(PERMUTE_OUT_NAME)
+          == counts[KERNEL_NAME],
+          "the main path did not run one permute-in and one permute-out "
+          "a product")
+    perm_cases = permute_cases(torch, hm, (1, 128), args.seed)
     surface(T, torch, hm, args.n)
     example_counts = {}
     examples(torch, example_counts)
@@ -2959,6 +3047,7 @@ def main(argv=None) -> int:
                                   helm_counts, copy_gbs)
     check(helm_counts.get(K2_NAME, 0) > 0,
           "the Helmholtz path never launched kernel K2")
+    perm_cases += permute_cases(torch, helm, (8,), args.seed)
     pts_k2 = create_random_points_on_sphere(
         args.n_k2, np.random.RandomState(args.seed + 2))
     c_ops = {("N", "N"): helm}
@@ -3171,6 +3260,23 @@ def main(argv=None) -> int:
             "operator": operator,
             **{f"{key}_k{k}": p_case(k)[key] for k in PROMOTED_KS[1:]
                for key in ("ms", "plain_ms", "bound_ms")}})
+    for kern, pname in ((PERMUTE_IN_NAME, "permute_in"),
+                        (PERMUTE_OUT_NAME, "permute_out")):
+        mine = {f"k{c['k']}": c for c in perm_cases if c["kernel"] == pname}
+        kernels.append({
+            "name": kern, "route": "cuda", "source": k1_src,
+            "replaces": "none: x2d[perm_in] and the zero pad (y_pad[:nout]"
+            "[inv_perm_out]) inside the reference's jitted apply_hmatrix_user, "
+            "htool_python_tpu/ops/matvec.py:374-380",
+            "launches": counts[kern], "max_abs_err": 0.0 if all(
+                c["bit_exact"] for c in mine.values()) else None,
+            **{key: mine["k1"][key] for key in
+               ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")},
+            "bound_by": "bytes", "library": "torch.index_select",
+            "by_case": {case: {key: c[key] for key in
+                               ("n", "pad_len", "dtype", "ms", "device_ms",
+                                "plain_ms", "bound_ms", "library_ms")}
+                        for case, c in mine.items()}})
     kernels[0]["launches_sharded_float32"] = sharded_counts[
         f"float32/{KERNEL_NAME}"]
     kernels[0]["launches_custom_hooks"] = hook_counts[KERNEL_NAME]

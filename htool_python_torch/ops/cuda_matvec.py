@@ -52,7 +52,7 @@ must both hold every block segment (BucketTable.extent rows), or the call
 raises.  The data's dtype picks the kernel:
 
   * float32 data, float32 x: K1.  For real data 'C' is 'T' and 'H' is 'S'.
-  * float32 data, complex64 x: K1 on the real view (`real_view_product`).
+  * float32 data, complex64 x: K1 on the real view (`_launch`).
     H is real, so H (a + ib) = H a + i H b: the (L, k) complex x is read
     as (L, 2k) floats (torch.view_as_real, no copy), K1 runs over the 2k
     real columns, and its (ny_pad, 2k) result is viewed back as complex.
@@ -432,14 +432,18 @@ def _launch_f64(name, table, x, y, trans, sym, stream):
     LAUNCH_COUNTS[name] += -(-k // PASS_COLS[x.dtype])
 
 
-def _launch(name, mode, table, x, y, trans, sym, stream):
+def _launch(name, mode, table, x, y, real_view, trans, sym, stream):
     """Kernel `name` in launch structure `mode` over the work list of
     `table`, x (L, k) into the zeroed y (ny, k) on `stream`; x and y hold
-    the kernel's dtype and lie on the current device.  K1 / K2: 'fused'
-    (K1-al on aligned real data) and 'seq' launch once per pass of
-    PASS_COLS columns, over the list largest first and in bucket order;
-    'per_bucket' once per bucket and pass.  The float64 / complex128 family
-    has the 'fused' structure only."""
+    the product's dtype (`dispatch`) and lie on the current device.  With
+    `real_view` (a complex x on real data) the kernel runs over the
+    (rows, 2k) real views of x and y: H is real, so H (a + ib) = H a +
+    i H b.  K1 / K2: 'fused' (K1-al on aligned real data) and 'seq' launch
+    once per pass of PASS_COLS columns, over the list largest first and in
+    bucket order; 'per_bucket' once per bucket and pass.  The float64 /
+    complex128 family has the 'fused' structure only."""
+    if real_view:
+        x, y = _real_view(x), _real_view(y)
     if name in _F64_ENTRY:  # 'fused' only (`dispatch`)
         return _launch_f64(name, table, x, y, trans, sym, stream)
     lib = _library()
@@ -481,21 +485,18 @@ def _raise_on(rc, lib, name):
 
 def _real_view(t):
     """The (rows, 2k) real view of a complex (rows, k) tensor (re, im
-    interleaved per column; no copy)."""
+    interleaved per column; no copy): how a real operator's kernel takes a
+    complex x and y of the matching width (float32 data with complex64,
+    float64 with complex128)."""
     return torch.view_as_real(t).reshape(t.shape[0], 2 * t.shape[1])
 
 
-def real_view_product(real_product, x_pad, ny_pad: int):
-    """H x_pad for a real operator H and a complex x_pad (L, k) of the
-    matching width (f32 data with complex64, f64 with complex128): H is
-    real, so H (a + ib) = H a + i H b.  x_pad is read as its (L, 2k) real
-    view (re, im interleaved per column, no copy) and
-    `real_product(x_real, y_real)` adds H x_real into the (ny_pad, 2k) real
-    view of the zeroed complex result, which is returned."""
-    y = torch.zeros((ny_pad, x_pad.shape[1]), dtype=x_pad.dtype,
-                    device=x_pad.device)
-    real_product(_real_view(x_pad), _real_view(y))
-    return y
+def _stream(device):
+    """The raw handle of `device`'s current CUDA stream (torch's C call:
+    about 0.1 us on the H100's host, where
+    torch.cuda.current_stream(device).cuda_stream builds a Stream object
+    in about 4 us)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def dispatch(data_dtype, x_dtype, mode: str = "fused"):
@@ -505,7 +506,7 @@ def dispatch(data_dtype, x_dtype, mode: str = "fused"):
     data's dtype picks the kernel, or, where x is wider (float64 /
     complex128 x on float32 / complex64 data), the kernel that reads the
     data as stored and computes in the wider type; a real operator takes a
-    complex x through its real view (`real_view_product`).  Raises
+    complex x through its real view (`_launch`).  Raises
     NotImplementedError for the float64 / complex128 family in another
     structure than 'fused'; TypeError for another dtype."""
     _check_dtype(data_dtype, "the operator")
@@ -561,14 +562,10 @@ def apply_hmatrix_cuda(data, x_pad, ny_pad: int, trans: str, sym: str,
         return torch.zeros((ny_pad, k), dtype=dtype, device=device)
     x_pad = x_pad.to(dtype)
     _check_operand(x_pad, "x_pad", device, 2, dtype)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        if real_view:
-            return real_view_product(
-                lambda xr, yr: _launch(name, mode, table, xr, yr, trans, sym,
-                                       stream), x_pad, ny_pad)
-        y = torch.zeros((ny_pad, k), dtype=dtype, device=device)
-        _launch(name, mode, table, x_pad, y, trans, sym, stream)
+    y = torch.zeros((ny_pad, k), dtype=dtype, device=device)
+    with torch.cuda._DeviceGuard(device.index):
+        _launch(name, mode, table, x_pad, y, real_view, trans, sym,
+                _stream(device))
     return y
 
 
@@ -610,17 +607,20 @@ def apply_hmatrix_user_cuda(data, perm_in, inv_perm_out, x2d, pad_len: int,
     out = torch.empty((nout, k), dtype=dtype, device=device)
     if k == 0:
         return out
-    x = x2d.to(dtype).contiguous()
+    # each of these is a dispatched op, even where it returns x2d itself
+    x = x2d if x2d.dtype == dtype else x2d.to(dtype)
+    if not x.is_contiguous():
+        x = x.contiguous()
+    # fresh from the allocator, of the product's shape and dtype: 512-byte
+    # aligned, so `_check_operand` has nothing to find in them
     x_pad = torch.empty((pad_len, k), dtype=dtype, device=device)
     y = torch.empty((pad_len, k), dtype=dtype, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda._DeviceGuard(device.index):
+        stream = _stream(device)
         launch_permute_in(x, perm_in, x_pad, y, stream)
         if table.n_blocks:
-            _check_operand(x_pad, "x_pad", device, 2, dtype)
-            xr, yr = ((_real_view(x_pad), _real_view(y)) if real_view
-                      else (x_pad, y))
-            _launch(name, mode, table, xr, yr, trans, sym, stream)
+            _launch(name, mode, table, x_pad, y, real_view, trans, sym,
+                    stream)
         launch_permute_out(y, inv_perm_out, out, stream)
     return out
 

@@ -16,8 +16,9 @@ The reference assembles through its host-generator path (a numpy SVD per
 block, then its own bucketing and rank-class packing): the same buckets
 and storage layout as its device path, without the XLA compiles that make
 a device assembly cost seconds here.
-* K1's route for a complex x on a real f32 operator (`real_view_product`,
-  H (a + ib) = H a + i H b over the (L, 2k) real view), run here with the
+* K1's route for a complex x on a real f32 operator (`cuda_matvec._launch`
+  with its real views `_real_view`: H (a + ib) = H a + i H b over the
+  (L, 2k) real views of x and of the zeroed y), run here with the
   plain version as its real product, against the plain version on the
   complex x and against the reference's product.
 """
@@ -209,9 +210,9 @@ def test_real_view_route_for_complex_x(f32_operator, trans):
     x = torch.as_tensor(random_pad(L, n, 3, seed=9, dtype=np.complex64))
     y_plain = port_mv.apply_hmatrix_padded(data, x, L, trans, "S")
     assert y_plain.dtype == torch.complex64
-    y_view = cuda_matvec.real_view_product(
-        lambda xr, yr: yr.add_(port_mv.apply_hmatrix_padded(
-            data, xr, L, trans, "S")), x, L)
+    y_view = torch.zeros((L, 3), dtype=torch.complex64)
+    cuda_matvec._real_view(y_view).add_(port_mv.apply_hmatrix_padded(
+        data, cuda_matvec._real_view(x), L, trans, "S"))
     assert y_view.dtype == torch.complex64
     assert _rel(y_view.numpy(), y_plain.numpy()) <= 1e-6
     y_ref = np.asarray(ref_mv.apply_hmatrix_padded(

@@ -19,7 +19,8 @@ The kernels run on the card only (tests/test_torch_gpu.py, chip_smoke.py
   reference's `apply_hmatrix_padded` on the reference's own arrays, within
   1e-12, trans N / T (/ C) x storage x k in {1, 9, 65}; the arrays carry
   over bit for bit (`interop.from_reference_data`);
-* the real view at float64 (`real_view_product`);
+* the real view at float64 (`cuda_matvec._real_view`, as `_launch` takes
+  a complex x on real data);
 * the promoted products: the reference's `apply_hmatrix_padded` on its
   own float32 / complex64 arrays with a float64 / complex128 x (it
   promotes the operator) against the port's plain version and its plain
@@ -218,11 +219,11 @@ def test_real_view_at_float64(operators):
     L, n = hm._pad_len, hm.shape[0]
     x = torch.as_tensor(random_pad(L, n, 3, seed=3, dtype=np.complex128))
 
-    def real_product(xr, yr):
-        assert xr.dtype == F64 and xr.shape == (L, 6)
-        yr += port_mv.apply_hmatrix_padded(data, xr, L, "N", "S")
-
-    y = cuda_matvec.real_view_product(real_product, x, L)
+    xr = cuda_matvec._real_view(x)
+    assert xr.dtype == F64 and xr.shape == (L, 6)
+    y = torch.zeros((L, 3), dtype=C128)
+    cuda_matvec._real_view(y).add_(
+        port_mv.apply_hmatrix_padded(data, xr, L, "N", "S"))
     y_plain = port_mv.apply_hmatrix_padded(data, x, L, "N", "S")
     assert y.dtype == C128
     assert torch.linalg.norm(y - y_plain) <= 1e-14 * torch.linalg.norm(
